@@ -1,0 +1,50 @@
+"""Dtypes and contraction settings of the PyTorch port.
+
+The JAX package reads these settings from ``FF_TPU_*`` environment
+variables; the port takes them as keyword arguments with the same
+defaults.  Everything is computed in ``float64`` / ``complex128``: the
+port passes these dtypes explicitly and never changes torch's global
+default dtype.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+#: Real working dtype.
+REAL = torch.float64
+#: Complex working dtype.
+COMPLEX = torch.complex128
+
+#: Ozaki truncation level of shallow contractions (JAX:
+#: ``FF_TPU_OZAKI_BITS``).  It also sets the slice rule that decides
+#: whether a contraction is "deep".
+PRECISION_BITS = 30
+#: Truncation level of the deep factored contraction (JAX:
+#: ``FF_TPU_OZAKI_BITS_DEEP``).
+DEEP_PRECISION_BITS = 24
+#: Relative noise-to-signal level of the fidelity filter function above
+#: which the deep factored contraction is recomputed at full precision
+#: (JAX: ``FF_TPU_OZAKI_ESCALATE_TOL``; 0 disables escalation).
+ESCALATION_TOL = 0.1
+
+_CONTRACT_MODES = ('native', 'ozaki')
+
+
+def contraction_mode(device: torch.device,
+                     contract: Optional[str] = None) -> str:
+    """How the control-matrix contraction runs for tensors on *device*.
+
+    'native' -- one complex128 matrix product.
+    'ozaki'  -- the deep factored int8 route (ops/ozaki, ops/dword).
+
+    ``contract=None`` resolves to 'ozaki' for CUDA tensors and 'native'
+    for CPU tensors, as the JAX package picks 'ozaki' off the CPU.
+    """
+    if contract is None:
+        return 'ozaki' if torch.device(device).type == 'cuda' else 'native'
+    if contract not in _CONTRACT_MODES:
+        raise ValueError(f'contract must be one of {_CONTRACT_MODES} or '
+                         f'None, got {contract!r}')
+    return contract

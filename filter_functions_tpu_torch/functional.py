@@ -1,0 +1,149 @@
+"""Functional pipeline API of the PyTorch port (counterpart of
+``filter_functions_tpu.functional``): the control matrix and the
+infidelity of pulses given as plain tensors.
+
+A pulse is a :class:`PulseArrays` of tensors.  Batched functions take a
+leading batch axis on ``c_coeffs``, ``n_coeffs`` and ``dt`` and share
+the operators and the basis, as the JAX package's ``vmap`` does.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from . import config, numeric, util
+
+__all__ = ['PulseArrays', 'control_matrix', 'infidelity',
+           'batched_infidelity']
+
+
+class PulseArrays(NamedTuple):
+    """The static ingredients of a pulse."""
+    c_opers: torch.Tensor    # (n_ctrl, d, d) complex128
+    c_coeffs: torch.Tensor   # (..., n_ctrl, G) float64
+    n_opers: torch.Tensor    # (n_nops, d, d) complex128
+    n_coeffs: torch.Tensor   # (..., n_nops, G) float64
+    dt: torch.Tensor         # (..., G) float64
+    basis: torch.Tensor      # (n_b, d, d) complex128
+
+
+def _infid_prep(p: PulseArrays, c_coeffs: torch.Tensor,
+                n_coeffs: torch.Tensor, dt: torch.Tensor,
+                omega: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Diagonalization and per-segment step terms of the pulses with
+    these coefficients and durations (any leading batch axes)."""
+    ham = torch.einsum('jmn,...jg->...gmn', p.c_opers,
+                       c_coeffs.to(p.c_opers.dtype))
+    eigvals, eigvecs, propagators = numeric.diagonalize(ham, dt)
+    zero = torch.zeros_like(dt[..., :1])
+    t = torch.cat([zero, torch.cumsum(dt, -1)], -1)
+    return numeric._ctrlmat_step_terms(
+        eigvals, eigvecs, propagators[..., :-1, :, :], omega, p.basis,
+        p.n_opers, n_coeffs, dt, t[..., :-1])
+
+
+def _infid_contract(terms: Tuple[torch.Tensor, ...], spectrum: torch.Tensor,
+                    omega: torch.Tensor, d: int, escalation: str = 'stat',
+                    contract: str = 'native'
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Control-matrix contraction and spectral integral of step terms.
+
+    Returns (infidelity (..., n_nops), ratio (...)), the ratio being the
+    quantization statistic of the deep factored contraction (0 off that
+    route)."""
+    _, n_t, b_t, ph, integral = terms
+    ctrl, ratio = numeric._ctrlmat_contract(n_t, integral, b_t, ph,
+                                            escalation, contract)
+    diag = (ctrl.real * ctrl.real + ctrl.imag * ctrl.imag).sum(-2)
+    infid = util.integrate(diag * spectrum, omega) / (2 * math.pi * d)
+    return infid, ratio
+
+
+def control_matrix(p: PulseArrays, omega: torch.Tensor,
+                   contract: Optional[str] = None,
+                   escalation_tol: float = config.ESCALATION_TOL
+                   ) -> torch.Tensor:
+    """Control matrix (..., n_nops, n_b, n_omega) of the pulse(s) *p*.
+
+    *contract* picks the contraction route (:func:`.config.
+    contraction_mode`).  On the deep factored route the result is
+    recomputed natively when its quantization statistic exceeds
+    *escalation_tol* (0 disables the check)."""
+    mode = config.contraction_mode(p.c_opers.device, contract)
+    terms = _infid_prep(p, p.c_coeffs, p.n_coeffs, p.dt, omega)
+    _, n_t, b_t, ph, integral = terms
+    ctrl, ratio = numeric._ctrlmat_contract(n_t, integral, b_t, ph, 'stat',
+                                            mode)
+    if escalation_tol > 0 and bool((ratio > escalation_tol).any()):
+        ctrl, _ = numeric._ctrlmat_contract(n_t, integral, b_t, ph,
+                                            'force', mode)
+    return ctrl
+
+
+def infidelity(p: PulseArrays, spectrum: torch.Tensor, omega: torch.Tensor,
+               contract: Optional[str] = None,
+               escalation_tol: float = config.ESCALATION_TOL
+               ) -> torch.Tensor:
+    """Leading-order infidelity per noise operator (n_nops,) of one
+    pulse for a per-operator (or broadcastable) spectrum."""
+    batched = p._replace(c_coeffs=p.c_coeffs[None], n_coeffs=p.n_coeffs[None],
+                         dt=p.dt[None])
+    return batched_infidelity(batched, spectrum, omega, contract=contract,
+                              escalation_tol=escalation_tol)[0]
+
+
+def _batched_stat(p: PulseArrays, spectrum: torch.Tensor,
+                  omega: torch.Tensor, chunk_size: Optional[int],
+                  escalation: str, contract: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Infidelities (batch, n_nops) and quantization ratios (batch,) of
+    the batch, evaluated in sequential chunks of *chunk_size* pulses."""
+    batch = p.c_coeffs.shape[0]
+    d = p.c_opers.shape[-1]
+    if chunk_size is None or chunk_size >= batch:
+        chunk_size = batch
+    elif chunk_size < 1 or batch % chunk_size:
+        raise ValueError(f'chunk_size {chunk_size} must be positive and '
+                         f'divide batch {batch}')
+    infids, ratios = [], []
+    for start in range(0, batch, chunk_size):
+        sl = slice(start, start + chunk_size)
+        terms = _infid_prep(p, p.c_coeffs[sl], p.n_coeffs[sl], p.dt[sl],
+                            omega)
+        infid, ratio = _infid_contract(terms, spectrum, omega, d,
+                                       escalation, contract)
+        infids.append(infid)
+        ratios.append(ratio)
+    return torch.cat(infids), torch.cat(ratios)
+
+
+def batched_infidelity(p: PulseArrays, spectrum: torch.Tensor,
+                       omega: torch.Tensor,
+                       chunk_size: Optional[int] = None,
+                       contract: Optional[str] = None,
+                       escalation_tol: float = config.ESCALATION_TOL
+                       ) -> torch.Tensor:
+    """Infidelity (batch, n_nops) of a batch of pulses (leading batch
+    axis on c_coeffs / n_coeffs / dt; shared operators and basis).
+
+    ``chunk_size`` evaluates the batch in sequential chunks of that many
+    pulses, bounding peak memory with no effect on the values; the batch
+    must divide evenly into chunks.
+
+    *contract* picks the contraction route (:func:`.config.
+    contraction_mode`: 'ozaki' for CUDA tensors, 'native' for CPU ones).
+    On the deep factored route every pulse reports its quantization
+    statistic (:func:`.numeric._deep_quant_ratio`); when the batch
+    maximum exceeds *escalation_tol* the whole batch is recomputed on
+    the full-precision route ('force').  Deciding that reads the maximum
+    on the host, one synchronization per call.
+    """
+    mode = config.contraction_mode(p.c_opers.device, contract)
+    infid, ratios = _batched_stat(p, spectrum, omega, chunk_size, 'stat',
+                                  mode)
+    if escalation_tol > 0 and bool(ratios.max() > escalation_tol):
+        infid, _ = _batched_stat(p, spectrum, omega, chunk_size, 'force',
+                                 mode)
+    return infid
