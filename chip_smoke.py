@@ -20,8 +20,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    within 1e-10 of the native complex128 route on the card, and that
    the card's native row 0 is within 1e-12 of the CPU's.
 5. timing: median of 5 runs of both routes, in ms per pulse.
+6. object path: ``fft.infidelity`` on the QFT pulse built with
+   ``PulseSequence.from_arrays`` on the card, at 1000 frequencies,
+   through the default CUDA route.  Checks that the kernel launched,
+   that the (18,) result is finite, within 1e-10 of phase 4's native
+   row 0 and within 1e-12 of its Ozaki row 0, that a second call with
+   the same frequencies launches nothing, and that the filter function
+   is (18, 18, 1000) complex128; times 5 cold calls (caches cleared),
+   median in ms, and reports the peak device memory of the phase.
 
-The line before the last is the kernels' JSON record, the last line
+Before the last line come the card's label and the kernels' JSON
+record, in that order; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -33,6 +42,7 @@ import time
 import numpy as np
 import torch
 
+import filter_functions_tpu_torch as fft
 from filter_functions_tpu_torch import config, functional
 from filter_functions_tpu_torch.models import qft
 from filter_functions_tpu_torch.ops import _build, dword
@@ -50,6 +60,10 @@ PARITY = 1e-10
 #: The card's native route against the CPU's: both are complex128
 #: products, summed in another order.
 CPU_PARITY = 1e-12
+#: The object path's Ozaki route against the functional one's on the
+#: same card: the same digits and recombination, from an
+#: eigendecomposition of another batch shape.
+OBJECT_PARITY = 1e-12
 
 
 def _card_label() -> str:
@@ -205,17 +219,84 @@ def main() -> int:
     print(f'peak device memory: '
           f'{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB')
 
+    # 6. object path
+    object_launches = object_path(device, card, native[0], infid[0])
+
+    print(card)
     print(json.dumps({'kernels': [{
         'name': 'dword_digits', 'route': 'cuda',
         'source': 'filter_functions_tpu_torch/csrc/dword_digits.cu',
         'replaces': 'filter_functions_tpu/ops/dword_pallas.py:198',
-        'launches': launches, 'max_abs_err': kernel_err, 'ms': kernel_ms,
+        'launches': launches + object_launches,
+        'launches_by_path': {
+            'functional.batched_infidelity': launches,
+            'numeric.infidelity (PulseSequence)': object_launches},
+        'max_abs_err': kernel_err, 'ms': kernel_ms,
         'plain_ms': plain_ms}]}))
-    print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
     return 0
+
+
+def object_path(device, card, native_row0, ozaki_row0) -> int:
+    """Phase 6: the object API on the flagship; returns the kernel's
+    launches in the first call."""
+    pulse = qft.qft_pulse_sequence(4, device=device)
+    omega = torch.from_numpy(np.geomspace(1e-2, 1e2, N_OMEGA)).to(device)
+    spectrum = 1e-4 / omega
+    torch.cuda.reset_peak_memory_stats(device)
+    dword.launches = 0
+    infid = fft.infidelity(pulse, spectrum, omega)
+    torch.cuda.synchronize()
+    launches = dword.launches
+    print(f'object path: fft.infidelity(PulseSequence) on {pulse.device}, '
+          f'dword_digits launches {launches}')
+    if launches <= 0:
+        raise AssertionError('the object path never launched dword_digits')
+    if infid.shape != (18,) or not torch.isfinite(infid).all():
+        raise AssertionError(f'bad infidelities: shape {tuple(infid.shape)}'
+                             f', finite {bool(torch.isfinite(infid).all())}')
+    to_native = (infid - native_row0).abs().max().item()
+    to_ozaki = (infid - ozaki_row0).abs().max().item()
+    print(f'object path against phase 4 row 0: native max |diff| '
+          f'{to_native:.6e} (bound {PARITY}), Ozaki max |diff| '
+          f'{to_ozaki:.6e} (bound {OBJECT_PARITY}); infidelity sum '
+          f'{infid.sum().item():.12e}')
+    if not to_native <= PARITY:
+        raise AssertionError('the object path is off the native route by '
+                             'more than the parity contract')
+    if not to_ozaki <= OBJECT_PARITY:
+        raise AssertionError('the object path is off the functional Ozaki '
+                             'route')
+    dword.launches = 0
+    again = fft.infidelity(pulse, spectrum, omega)
+    torch.cuda.synchronize()
+    if dword.launches != 0 or not torch.equal(again, infid):
+        raise AssertionError(f'the cached second call launched '
+                             f'{dword.launches} kernels or changed the '
+                             'result')
+    filter_function = pulse.get_filter_function(omega)
+    if filter_function.shape != (18, 18, N_OMEGA) or \
+            filter_function.dtype != torch.complex128:
+        raise AssertionError(f'bad filter function: '
+                             f'{tuple(filter_function.shape)} '
+                             f'{filter_function.dtype}')
+    print('object path: the cached second call launched nothing; filter '
+          f'function {tuple(filter_function.shape)} {filter_function.dtype}')
+    peak = torch.cuda.max_memory_allocated(device)
+    times = []
+    for _ in range(N_TIMED):
+        pulse.cleanup('all')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fft.infidelity(pulse, spectrum, omega)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f'timing: object path {statistics.median(times) * 1e3:.4f} ms per '
+          f'cold call (median of {N_TIMED}, caches cleared before each); '
+          f'peak device memory {peak / 2**30:.2f} GiB [{card}]')
+    return launches
 
 
 if __name__ == '__main__':

@@ -1,20 +1,29 @@
 """PyTorch port of :mod:`filter_functions_tpu` for CUDA GPUs.
 
-The first slice of the port: the batched infidelity of the 4-qubit QFT
-pulse, through the same pipeline the JAX package runs -- diagonalize,
-per-segment step terms, the control-matrix contraction (native
-complex128, or the factored int8 Ozaki route with the hand-written CUDA
-kernel of :mod:`.ops.dword`) and the spectral integral.
+The object API -- :class:`PulseSequence`, :class:`Basis`, control
+matrices, filter functions and :func:`infidelity` -- and the functional
+flagship path (:mod:`.functional`: the batched infidelity of the 4-qubit
+QFT pulse) run through the same pipeline as the JAX package:
+diagonalize, per-segment step terms, the control-matrix contraction
+(native complex128, or the factored int8 Ozaki route with the
+hand-written CUDA kernel of :mod:`.ops.dword`) and the spectral
+integral.
 
 Complex values are ``torch.complex128`` and reals ``torch.float64``;
-every function runs on the device of its inputs.  The package imports
+every computed value lives on an explicit device.  The package imports
 ``torch`` and never ``jax``.
 """
-from . import config, convert, functional, numeric, util
-from .functional import (PulseArrays, batched_infidelity, control_matrix,
-                         infidelity)
-from .models.qft import qft_pulse_arrays
+from . import (basis, config, convert, functional, numeric, pulse_sequence,
+               superoperator, types, util)
+from .basis import Basis
+from .functional import PulseArrays, batched_infidelity, control_matrix
+from .models.qft import qft_pulse_arrays, qft_pulse_sequence
+from .numeric import infidelity
+from .pulse_sequence import PulseSequence
+from .superoperator import liouville_representation
 
-__all__ = ['PulseArrays', 'batched_infidelity', 'config', 'control_matrix',
-           'convert', 'functional', 'infidelity', 'numeric',
-           'qft_pulse_arrays', 'util']
+__all__ = ['Basis', 'PulseArrays', 'PulseSequence', 'batched_infidelity',
+           'control_matrix', 'infidelity', 'liouville_representation',
+           'qft_pulse_arrays', 'qft_pulse_sequence', 'basis', 'config',
+           'convert', 'functional', 'numeric', 'pulse_sequence',
+           'superoperator', 'types', 'util']

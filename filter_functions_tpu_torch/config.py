@@ -48,3 +48,23 @@ def contraction_mode(device: torch.device,
         raise ValueError(f'contract must be one of {_CONTRACT_MODES} or '
                          f'None, got {contract!r}')
     return contract
+
+
+def memory_budget(device: torch.device,
+                  budget_bytes: Optional[int] = None) -> int:
+    """Working-buffer byte budget of the chunked control-matrix
+    accumulation for tensors on *device*.
+
+    *budget_bytes* (JAX: ``FF_TPU_MEMORY_BUDGET``) is taken as given;
+    otherwise an eighth of a CUDA device's total memory, or 2 GiB
+    elsewhere, clamped to [64 MiB, 4 GiB], as in the JAX package.  The
+    chunking follows the budget; the result does not depend on it.
+    """
+    if budget_bytes is not None:
+        return int(budget_bytes)
+    device = torch.device(device)
+    if device.type == 'cuda':
+        budget = torch.cuda.mem_get_info(device)[1] // 8
+    else:
+        budget = 2 << 30
+    return max(64 << 20, min(budget, 4 << 30))

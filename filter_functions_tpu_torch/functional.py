@@ -15,8 +15,8 @@ import torch
 
 from . import config, numeric, util
 
-__all__ = ['PulseArrays', 'control_matrix', 'infidelity',
-           'batched_infidelity']
+__all__ = ['PulseArrays', 'make_pulse_arrays', 'control_matrix',
+           'fidelity_filter_function', 'infidelity', 'batched_infidelity']
 
 
 class PulseArrays(NamedTuple):
@@ -27,6 +27,14 @@ class PulseArrays(NamedTuple):
     n_coeffs: torch.Tensor   # (..., n_nops, G) float64
     dt: torch.Tensor         # (..., G) float64
     basis: torch.Tensor      # (n_b, d, d) complex128
+
+
+def make_pulse_arrays(pulse) -> PulseArrays:
+    """:class:`PulseArrays` of a :class:`~.pulse_sequence.PulseSequence`,
+    on the pulse's device."""
+    return PulseArrays(pulse.c_opers_dev, pulse._dev_arr('c_coeffs'),
+                       pulse.n_opers_dev, pulse._dev_arr('n_coeffs'),
+                       pulse._dev_arr('dt'), pulse.basis.tensor(pulse.device))
 
 
 def _infid_prep(p: PulseArrays, c_coeffs: torch.Tensor,
@@ -80,6 +88,16 @@ def control_matrix(p: PulseArrays, omega: torch.Tensor,
         ctrl, _ = numeric._ctrlmat_contract(n_t, integral, b_t, ph,
                                             'force', mode)
     return ctrl
+
+
+def fidelity_filter_function(p: PulseArrays, omega: torch.Tensor,
+                             contract: Optional[str] = None,
+                             escalation_tol: float = config.ESCALATION_TOL
+                             ) -> torch.Tensor:
+    """Fidelity filter function (..., n_nops, n_nops, n_omega) of the
+    pulse(s) *p*."""
+    ctrl = control_matrix(p, omega, contract, escalation_tol)
+    return numeric.calculate_filter_function(ctrl, 'fidelity')
 
 
 def infidelity(p: PulseArrays, spectrum: torch.Tensor, omega: torch.Tensor,
