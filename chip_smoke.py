@@ -28,6 +28,27 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the same frequencies launches nothing, and that the filter function
    is (18, 18, 1000) complex128; times 5 cold calls (caches cleared),
    median in ms, and reports the peak device memory of the phase.
+7. error transfer matrix.
+   a. ``fft.error_transfer_matrix`` of the QFT pulse on the card, first
+      order, 1000 frequencies, through the default CUDA route: the
+      control matrix launches the kernel, the 256-element basis takes
+      the contraction through the basis.  Checks that the kernel
+      launched, that the (256, 256) float64 result is finite and
+      completely positive, that -tr K / d^2 of its cumulant function is
+      within 1e-12 relative of phase 6's infidelity sum, that it is
+      within 1.6e-9 of the ETM from a natively computed control matrix,
+      and that the card's native ETM is within 1e-12 of the CPU's;
+      times 5 cold calls (each must launch the kernel), median in ms,
+      and reports the peak device memory.
+   b. ``functional.batched_error_transfer_matrix(..., second_order=True)``
+      at bench.py's ``config_second_order`` inputs (d = 4, 8 segments,
+      2 control and 2 noise operators, 200 frequencies, batch 64, GGM
+      basis, ``default_rng(7)``, spectrum 1e-4/omega).  Checks the
+      (64, 16, 16) shape, rows 0 and 63 within 1e-13 of the object
+      path's second-order ETM on the card, the antisymmetry of the
+      second-order part of row 0's cumulant function within 1e-15, and
+      rows 0 and 63 within 1e-12 of the CPU; times 5 calls, median in ms
+      per evaluation.
 
 Before the last line come the card's label and the kernels' JSON
 record, in that order; the last line is
@@ -43,7 +64,8 @@ import numpy as np
 import torch
 
 import filter_functions_tpu_torch as fft
-from filter_functions_tpu_torch import config, functional
+from filter_functions_tpu_torch import (config, functional, numeric,
+                                        superoperator)
 from filter_functions_tpu_torch.models import qft
 from filter_functions_tpu_torch.ops import _build, dword
 
@@ -64,6 +86,19 @@ CPU_PARITY = 1e-12
 #: same card: the same digits and recombination, from an
 #: eigendecomposition of another batch shape.
 OBJECT_PARITY = 1e-12
+#: The Ozaki route's ETM against the native route's: d times PARITY,
+#: since sum_k Gamma_kk = d I_a carries the infidelity's error into K.
+ETM_PARITY = 1.6e-9
+#: -tr K / d^2 against the infidelity, relative: the same control
+#: matrix, integrated with trapezoid weights instead of the trapezoid.
+TRACE_IDENTITY = 1e-12
+#: The batched second-order ETM against the object path's, as the JAX
+#: package holds its own (tests/test_parallel.py).
+ETM_BATCH_PARITY = 1e-13
+#: Antisymmetry of the second-order part of the cumulant function.
+ANTISYMMETRY = 1e-15
+#: config_second_order's shapes: (d, segments, frequencies, batch).
+SO_SHAPE = (4, 8, 200, 64)
 
 
 def _card_label() -> str:
@@ -220,17 +255,23 @@ def main() -> int:
           f'{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB')
 
     # 6. object path
-    object_launches = object_path(device, card, native[0], infid[0])
+    object_launches, object_infid = object_path(device, card, native[0],
+                                                infid[0])
+
+    # 7. error transfer matrix
+    etm_launches = etm_flagship(device, card, object_infid)
+    etm_second_order(device, card)
 
     print(card)
     print(json.dumps({'kernels': [{
         'name': 'dword_digits', 'route': 'cuda',
         'source': 'filter_functions_tpu_torch/csrc/dword_digits.cu',
         'replaces': 'filter_functions_tpu/ops/dword_pallas.py:198',
-        'launches': launches + object_launches,
+        'launches': launches + object_launches + etm_launches,
         'launches_by_path': {
             'functional.batched_infidelity': launches,
-            'numeric.infidelity (PulseSequence)': object_launches},
+            'numeric.infidelity (PulseSequence)': object_launches,
+            'numeric.error_transfer_matrix (PulseSequence)': etm_launches},
         'max_abs_err': kernel_err, 'ms': kernel_ms,
         'plain_ms': plain_ms}]}))
     print(json.dumps({'ok': True, 'device': {
@@ -239,9 +280,9 @@ def main() -> int:
     return 0
 
 
-def object_path(device, card, native_row0, ozaki_row0) -> int:
+def object_path(device, card, native_row0, ozaki_row0):
     """Phase 6: the object API on the flagship; returns the kernel's
-    launches in the first call."""
+    launches in the first call and the infidelities."""
     pulse = qft.qft_pulse_sequence(4, device=device)
     omega = torch.from_numpy(np.geomspace(1e-2, 1e2, N_OMEGA)).to(device)
     spectrum = 1e-4 / omega
@@ -296,7 +337,169 @@ def object_path(device, card, native_row0, ozaki_row0) -> int:
     print(f'timing: object path {statistics.median(times) * 1e3:.4f} ms per '
           f'cold call (median of {N_TIMED}, caches cleared before each); '
           f'peak device memory {peak / 2**30:.2f} GiB [{card}]')
+    return launches, infid
+
+
+def etm_flagship(device, card, infid) -> int:
+    """Phase 7a: the first-order ETM of the flagship through the object
+    API; returns the kernel's launches in the first call."""
+    omega = torch.from_numpy(np.geomspace(1e-2, 1e2, N_OMEGA)).to(device)
+    spectrum = 1e-4 / omega
+    pulse = qft.qft_pulse_sequence(4, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    dword.launches = 0
+    etm = fft.error_transfer_matrix(pulse, spectrum, omega)
+    torch.cuda.synchronize()
+    launches = dword.launches
+    peak = torch.cuda.max_memory_allocated(device)
+    print(f'etm flagship: fft.error_transfer_matrix(PulseSequence) on '
+          f'{pulse.device}, basis of {len(pulse.basis)}, dword_digits '
+          f'launches {launches}')
+    if launches <= 0:
+        raise AssertionError('the ETM path never launched dword_digits')
+    if etm.shape != (256, 256) or etm.dtype != torch.float64 or \
+            not torch.isfinite(etm).all():
+        raise AssertionError(f'bad ETM: {tuple(etm.shape)} {etm.dtype}, '
+                             f'finite {bool(torch.isfinite(etm).all())}')
+
+    cumulant = numeric.calculate_cumulant_function(pulse, spectrum, omega)
+    from_trace = (-torch.einsum('aii->', cumulant) / pulse.d**2).item()
+    infid_sum = infid.sum().item()
+    identity = abs(from_trace - infid_sum) / infid_sum
+    print(f'etm flagship: -tr K / d^2 {from_trace:.12e} against the '
+          f'infidelity sum {infid_sum:.12e}: relative {identity:.3e} '
+          f'(bound {TRACE_IDENTITY})')
+    if not identity <= TRACE_IDENTITY:
+        raise AssertionError('-tr K / d^2 is off the infidelity')
+
+    native = qft.qft_pulse_sequence(4, device=device)
+    native.cache_control_matrix(
+        omega, numeric.calculate_control_matrix_from_scratch(
+            native.eigvals, native.eigvecs, native.propagators, omega,
+            native.basis, native.n_opers_dev, native.n_coeffs, native.dt,
+            t=native.t, contract='native'))
+    etm_native = fft.error_transfer_matrix(native, spectrum, omega)
+    to_native = (etm - etm_native).abs().max().item()
+    cpu = fft.error_transfer_matrix(qft.qft_pulse_sequence(4), spectrum.cpu(),
+                                    omega.cpu())
+    to_cpu = (etm_native.cpu() - cpu).abs().max().item()
+    is_cp = superoperator.liouville_is_CP(etm, pulse.basis)
+    print(f'etm flagship: Ozaki against native max |diff| {to_native:.6e} '
+          f'(bound {ETM_PARITY}); card native against CPU {to_cpu:.6e} '
+          f'(bound {CPU_PARITY}); completely positive {is_cp}')
+    if not to_native <= ETM_PARITY:
+        raise AssertionError('the Ozaki ETM is off the native one')
+    if not to_cpu <= CPU_PARITY:
+        raise AssertionError('the card and the CPU disagree on the ETM')
+    if not is_cp:
+        raise AssertionError('the ETM is not completely positive')
+
+    times = []
+    for _ in range(N_TIMED):
+        pulse.cleanup('all')
+        dword.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fft.error_transfer_matrix(pulse, spectrum, omega)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if dword.launches <= 0:
+            raise AssertionError('a cold ETM call launched no kernel')
+    print(f'timing: etm flagship {statistics.median(times) * 1e3:.4f} ms '
+          f'per cold call (median of {N_TIMED}, caches cleared before '
+          f'each); peak device memory {peak / 2**30:.2f} GiB [{card}]')
     return launches
+
+
+def second_order_inputs(device):
+    """bench.py's config_second_order inputs: (PulseArrays on *device*,
+    host arrays, omega, spectrum)."""
+    d, n_dt, n_omega, batch = SO_SHAPE
+    rng = np.random.default_rng(7)
+
+    def herm_traceless(k):
+        a = rng.standard_normal((k, d, d)) + 1j * rng.standard_normal(
+            (k, d, d))
+        a = (a + a.conj().swapaxes(-1, -2)) / 2
+        return a - (np.trace(a, axis1=-2, axis2=-1)[:, None, None]
+                    * np.eye(d) / d)
+
+    c_opers, n_opers = herm_traceless(2), herm_traceless(2)
+    c_coeffs = rng.standard_normal((batch, 2, n_dt))
+    n_coeffs = np.ones((batch, 2, n_dt))
+    dt = np.broadcast_to(1 - rng.random(n_dt), (batch, n_dt)).copy()
+    host = dict(c_opers=c_opers, c_coeffs=c_coeffs, n_opers=n_opers,
+                n_coeffs=n_coeffs, dt=dt)
+    basis = fft.Basis.ggm(d)
+    p = functional.PulseArrays(
+        *(torch.from_numpy(host[f]).to(device)
+          for f in ('c_opers', 'c_coeffs', 'n_opers', 'n_coeffs', 'dt')),
+        basis.tensor(device))
+    omega = torch.from_numpy(np.geomspace(1e-1, 1e1, n_omega)).to(device)
+    return p, host, basis, omega, 1e-4 / omega
+
+
+def etm_second_order(device, card) -> None:
+    """Phase 7b: the batched second-order ETM at config_second_order's
+    shapes."""
+    d, _, _, batch = SO_SHAPE
+    p, host, basis, omega, spectrum = second_order_inputs(device)
+    etm = functional.batched_error_transfer_matrix(p, spectrum, omega, basis,
+                                                   second_order=True)
+    torch.cuda.synchronize()
+    if etm.shape != (batch, d * d, d * d) or not torch.isfinite(etm).all():
+        raise AssertionError(f'bad batched ETM: {tuple(etm.shape)}, finite '
+                             f'{bool(torch.isfinite(etm).all())}')
+
+    def pulse(b, dev):
+        return fft.PulseSequence.from_arrays(
+            host['c_opers'], ['A', 'B'], host['c_coeffs'][b],
+            host['n_opers'], ['a', 'b'], host['n_coeffs'][b], host['dt'][b],
+            basis=basis, device=dev)
+
+    for b in (0, batch - 1):
+        single = fft.error_transfer_matrix(pulse(b, device), spectrum, omega,
+                                           second_order=True)
+        to_object = (etm[b] - single).abs().max().item()
+        row = p._replace(c_coeffs=p.c_coeffs[b].cpu(),
+                         n_coeffs=p.n_coeffs[b].cpu(), dt=p.dt[b].cpu(),
+                         c_opers=p.c_opers.cpu(), n_opers=p.n_opers.cpu(),
+                         basis=p.basis.cpu())
+        cpu = functional.error_transfer_matrix(row, spectrum.cpu(),
+                                               omega.cpu(), basis,
+                                               second_order=True)
+        to_cpu = (etm[b].cpu() - cpu).abs().max().item()
+        print(f'etm second order: row {b} against the object path max '
+              f'|diff| {to_object:.6e} (bound {ETM_BATCH_PARITY}), against '
+              f'the CPU {to_cpu:.6e} (bound {CPU_PARITY})')
+        if not to_object <= ETM_BATCH_PARITY:
+            raise AssertionError(f'row {b} is off the object path')
+        if not to_cpu <= CPU_PARITY:
+            raise AssertionError(f'row {b}: the card and the CPU disagree')
+
+    pulse_0 = pulse(0, device)
+    second = numeric.calculate_cumulant_function(
+        pulse_0, spectrum, omega, second_order=True) \
+        - numeric.calculate_cumulant_function(pulse_0, spectrum, omega)
+    asym = (second + second.mT).abs().max().item()
+    print(f'etm second order: K2 - K1 of row 0 antisymmetric to '
+          f'{asym:.3e} (bound {ANTISYMMETRY}), max |K2 - K1| '
+          f'{second.abs().max().item():.3e}')
+    if not asym <= ANTISYMMETRY:
+        raise AssertionError('the second-order cumulant is not '
+                             'antisymmetric')
+
+    times = []
+    for _ in range(N_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        functional.batched_error_transfer_matrix(p, spectrum, omega, basis,
+                                                 second_order=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    per_eval = statistics.median(times) / batch * 1e3
+    print(f'timing: etm second order {per_eval:.4f} ms per evaluation '
+          f'(median of {N_TIMED} calls of batch {batch}) [{card}]')
 
 
 if __name__ == '__main__':

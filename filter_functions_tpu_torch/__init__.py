@@ -1,13 +1,14 @@
 """PyTorch port of :mod:`filter_functions_tpu` for CUDA GPUs.
 
 The object API -- :class:`PulseSequence`, :class:`Basis`, control
-matrices, filter functions and :func:`infidelity` -- and the functional
-flagship path (:mod:`.functional`: the batched infidelity of the 4-qubit
-QFT pulse) run through the same pipeline as the JAX package:
-diagonalize, per-segment step terms, the control-matrix contraction
-(native complex128, or the factored int8 Ozaki route with the
-hand-written CUDA kernel of :mod:`.ops.dword`) and the spectral
-integral.
+matrices, first- and second-order filter functions, :func:`infidelity`
+and :func:`error_transfer_matrix` -- and the functional path
+(:mod:`.functional`: the batched infidelity of the 4-qubit QFT pulse,
+the batched error transfer matrix) run through the same pipeline as the
+JAX package: diagonalize, per-segment step terms, the control-matrix
+contraction (native complex128, or the factored int8 Ozaki route with
+the hand-written CUDA kernel of :mod:`.ops.dword`), the second-order
+integral lattice, the spectral integrals and the cumulant function.
 
 Complex values are ``torch.complex128`` and reals ``torch.float64``;
 every computed value lives on an explicit device.  The package imports
@@ -18,12 +19,13 @@ from . import (basis, config, convert, functional, numeric, pulse_sequence,
 from .basis import Basis
 from .functional import PulseArrays, batched_infidelity, control_matrix
 from .models.qft import qft_pulse_arrays, qft_pulse_sequence
-from .numeric import infidelity
+from .numeric import error_transfer_matrix, infidelity
 from .pulse_sequence import PulseSequence
 from .superoperator import liouville_representation
 
 __all__ = ['Basis', 'PulseArrays', 'PulseSequence', 'batched_infidelity',
-           'control_matrix', 'infidelity', 'liouville_representation',
+           'control_matrix', 'error_transfer_matrix', 'infidelity',
+           'liouville_representation',
            'qft_pulse_arrays', 'qft_pulse_sequence', 'basis', 'config',
            'convert', 'functional', 'numeric', 'pulse_sequence',
            'superoperator', 'types', 'util']

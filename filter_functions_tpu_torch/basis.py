@@ -6,8 +6,8 @@ characteristics (hermiticity, orthonormality, ...) are computed there
 and cached, for dispatch decisions only.  :meth:`Basis.tensor` gives a
 complex128 copy on a device, cached per device.
 
-The four-element traces and the Pauli structure constants come with
-the cumulant function, the Pauli index maps with ``remap``.
+The Pauli structure constants and the Pauli index maps come with
+``remap`` and ``extend``.
 """
 from __future__ import annotations
 
@@ -225,6 +225,25 @@ class Basis:
         return self._cached('iscomplete', lambda: bool(
             np.linalg.matrix_rank(self._np.reshape(len(self), -1))
             == self.d**2))
+
+    # -- trace tensor ------------------------------------------------------------
+    @property
+    def four_element_traces(self) -> np.ndarray:
+        r"""Dense host trace tensor T_ijkl = tr(C_i C_j C_k C_l), cached.
+
+        Only materialized for n <= 64; larger bases contract through
+        the basis instead (:func:`.numeric._trace_contract_basis`).
+        """
+        def compute():
+            n = len(self)
+            if n > 64:
+                raise MemoryError(
+                    'Dense four_element_traces too large for n = '
+                    f'{n}; use the contraction kernels instead.')
+            b = self._np
+            return np.einsum('iab,jbc,kcd,lda->ijkl', b, b, b, b,
+                             optimize=True)
+        return self._cached('four_element_traces', compute)
 
     # -- expansion -------------------------------------------------------------
     def expand(self, M, hermitian: bool = False, traceless: bool = False,

@@ -1,6 +1,7 @@
 """Functional pipeline API of the PyTorch port (counterpart of
-``filter_functions_tpu.functional``): the control matrix and the
-infidelity of pulses given as plain tensors.
+``filter_functions_tpu.functional``): the control matrix, the
+infidelity and the error transfer matrix of pulses given as plain
+tensors.
 
 A pulse is a :class:`PulseArrays` of tensors.  Batched functions take a
 leading batch axis on ``c_coeffs``, ``n_coeffs`` and ``dt`` and share
@@ -11,12 +12,15 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import config, numeric, util
+from .basis import Basis
 
 __all__ = ['PulseArrays', 'make_pulse_arrays', 'control_matrix',
-           'fidelity_filter_function', 'infidelity', 'batched_infidelity']
+           'fidelity_filter_function', 'infidelity', 'batched_infidelity',
+           'error_transfer_matrix', 'batched_error_transfer_matrix']
 
 
 class PulseArrays(NamedTuple):
@@ -37,17 +41,18 @@ def make_pulse_arrays(pulse) -> PulseArrays:
                        pulse._dev_arr('dt'), pulse.basis.tensor(pulse.device))
 
 
-def _infid_prep(p: PulseArrays, c_coeffs: torch.Tensor,
-                n_coeffs: torch.Tensor, dt: torch.Tensor,
-                omega: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+def _prep(p: PulseArrays, c_coeffs: torch.Tensor, n_coeffs: torch.Tensor,
+          dt: torch.Tensor, omega: torch.Tensor
+          ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """Diagonalization and per-segment step terms of the pulses with
-    these coefficients and durations (any leading batch axes)."""
+    these coefficients and durations (any leading batch axes): (eigvals,
+    step terms)."""
     ham = torch.einsum('jmn,...jg->...gmn', p.c_opers,
                        c_coeffs.to(p.c_opers.dtype))
     eigvals, eigvecs, propagators = numeric.diagonalize(ham, dt)
     zero = torch.zeros_like(dt[..., :1])
     t = torch.cat([zero, torch.cumsum(dt, -1)], -1)
-    return numeric._ctrlmat_step_terms(
+    return eigvals, numeric._ctrlmat_step_terms(
         eigvals, eigvecs, propagators[..., :-1, :, :], omega, p.basis,
         p.n_opers, n_coeffs, dt, t[..., :-1])
 
@@ -80,8 +85,8 @@ def control_matrix(p: PulseArrays, omega: torch.Tensor,
     recomputed natively when its quantization statistic exceeds
     *escalation_tol* (0 disables the check)."""
     mode = config.contraction_mode(p.c_opers.device, contract)
-    terms = _infid_prep(p, p.c_coeffs, p.n_coeffs, p.dt, omega)
-    _, n_t, b_t, ph, integral = terms
+    _, (_, n_t, b_t, ph, integral) = _prep(p, p.c_coeffs, p.n_coeffs, p.dt,
+                                           omega)
     ctrl, ratio = numeric._ctrlmat_contract(n_t, integral, b_t, ph, 'stat',
                                             mode)
     if escalation_tol > 0 and bool((ratio > escalation_tol).any()):
@@ -128,8 +133,7 @@ def _batched_stat(p: PulseArrays, spectrum: torch.Tensor,
     infids, ratios = [], []
     for start in range(0, batch, chunk_size):
         sl = slice(start, start + chunk_size)
-        terms = _infid_prep(p, p.c_coeffs[sl], p.n_coeffs[sl], p.dt[sl],
-                            omega)
+        _, terms = _prep(p, p.c_coeffs[sl], p.n_coeffs[sl], p.dt[sl], omega)
         infid, ratio = _infid_contract(terms, spectrum, omega, d,
                                        escalation, contract)
         infids.append(infid)
@@ -165,3 +169,81 @@ def batched_infidelity(p: PulseArrays, spectrum: torch.Tensor,
         infid, _ = _batched_stat(p, spectrum, omega, chunk_size, 'force',
                                  mode)
     return infid
+
+
+def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
+              second_order: bool, budget_bytes: Optional[int] = None
+              ) -> torch.Tensor:
+    """Error transfer matrices (..., n_b, n_b) of the pulse(s) *p*, with
+    any leading batch axes on c_coeffs / n_coeffs / dt: diagonalization,
+    per-step control matrices, decay amplitudes, optionally the
+    frequency shifts, the cumulant trace contraction and the matrix
+    exponential, on the device of the operators.
+
+    A real diagonal spectrum folds S w_trapz / 2 pi into the decay
+    amplitudes ('ako,ao,alo->akl') and the frequency shifts
+    (:func:`.numeric._second_order_diag_shifts`), so neither the
+    (a, k, l, w) integrand nor F^(2) exists; other spectra integrate
+    the integrand of the control matrix and of F^(2).  The second-order
+    terms run over chunks of segments that fit
+    :func:`.config.memory_budget` (*budget_bytes* overrides it).  The
+    trace contraction takes the basis's precombined combos (n <= 64,
+    :func:`.numeric._cumulant_trace_combos_dev`).
+    """
+    n_nops = p.n_opers.shape[0]
+    idx = np.arange(n_nops)
+    s = util.parse_spectrum(spectrum, omega, idx, device=omega.device)
+    eigvals, (_, n_t, b_t, ph, integral) = _prep(p, p.c_coeffs, p.n_coeffs,
+                                                 p.dt, omega)
+    step = numeric._ctrlmat_step_contract(n_t, integral, b_t, ph)
+    ctrl = step.sum(-4)
+    diagonal = s.ndim <= 2 and not s.is_complex()
+    if diagonal:
+        weights = numeric._spectral_weights(s, omega, n_nops)
+        gamma = numeric._folded_decay_amplitudes(ctrl, weights)
+    else:
+        gamma = numeric._integrate_2pi(numeric._get_integrand(
+            s, omega, idx, 'total', 'generalized', control_matrix=ctrl),
+            omega)
+    tg, td = numeric._cumulant_trace_combos_dev(basis, omega.device)
+    k_fn = numeric._cumulant_contract_core(gamma, tg)
+    if second_order:
+        cumul_padded = numeric._pad_cumulative(
+            step, step.cumsum(-4)[..., :-1, :, :, :])
+        if diagonal:
+            delta = numeric._second_order_diag_shifts(
+                eigvals, n_t, b_t, step, cumul_padded, omega, p.dt,
+                weights, budget_bytes).real
+        else:
+            f2 = numeric._second_order_total(eigvals, n_t, b_t, step,
+                                             cumul_padded, omega, p.dt,
+                                             budget_bytes)
+            delta = numeric._integrate_2pi(numeric._get_integrand(
+                s, omega, idx, 'total', 'generalized', filter_function=f2),
+                omega)
+        k_fn = k_fn + numeric._cumulant_contract_core(delta, td)
+    noise_axes = (-4, -3) if s.ndim == 3 else (-3,)
+    return numeric._expm(k_fn.sum(noise_axes))
+
+
+def error_transfer_matrix(p: PulseArrays, spectrum, omega, basis: Basis,
+                          second_order: bool = False) -> torch.Tensor:
+    """Error transfer matrix exp K (n_b, n_b) of one pulse given as
+    :class:`PulseArrays`, for a spectrum of ndim 1-3 (a tensor stays on
+    its device); *basis* is the :class:`~.basis.Basis` of ``p.basis``,
+    whose dense four-element traces it contracts with.  The object API
+    (:func:`.numeric.error_transfer_matrix`) computes the same quantity
+    with caching."""
+    omega = torch.as_tensor(omega, dtype=config.REAL,
+                            device=p.c_opers.device)
+    return _etm_core(p, spectrum, omega, basis, second_order)
+
+
+def batched_error_transfer_matrix(p: PulseArrays, spectrum, omega,
+                                  basis: Basis, second_order: bool = False
+                                  ) -> torch.Tensor:
+    """Error transfer matrices (batch, n_b, n_b) of a batch of pulses
+    (leading batch axis on c_coeffs / n_coeffs / dt; shared operators,
+    basis, spectrum and frequencies), evaluated as one batched
+    computation; see :func:`error_transfer_matrix`."""
+    return error_transfer_matrix(p, spectrum, omega, basis, second_order)

@@ -1,18 +1,24 @@
 r"""Numerical kernels (counterparts of ``filter_functions_tpu.numeric``):
-diagonalization (K0), the control matrix from scratch (K4: per-segment
-step terms and their contraction), the filter functions (K8, K9) and
-the infidelity (K17).
+diagonalization (K0), the second-order integral lattice (K2), the
+control matrix from scratch (K4: per-segment step terms and their
+contraction), the filter functions (K8, K9), the second-order filter
+function from scratch (K10), the integrand (K12), decay amplitudes and
+frequency shifts (K13, K14), the cumulant function (K15), the error
+transfer matrix (K16) and the infidelity (K17).
 
 Complex values are ``complex128`` tensors and reals ``float64``.  The
-K0 and K4 helpers take any number of leading batch axes where the JAX
-package relied on ``vmap``; shapes below name only the trailing axes.
-Host metadata (coefficients, durations, the basis master copy) may come
-as numpy and is moved to the device of the eigenvalues.
+K0, K2 and K4 helpers and the second-order contractions take any
+number of leading batch axes where the JAX package relied on ``vmap``;
+shapes below name only the trailing axes.  Host metadata (coefficients,
+durations, the basis master copy) may come as numpy and is moved to the
+device of the eigenvalues.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
+from warnings import warn
 
 import numpy as np
 import torch
@@ -25,6 +31,13 @@ from .ops import ozaki
 def _cexp(x: torch.Tensor) -> torch.Tensor:
     """e^{ix} of a real tensor."""
     return torch.complex(torch.cos(x), torch.sin(x))
+
+
+def _perm_tail(x: torch.Tensor, *order: int) -> torch.Tensor:
+    """Permute the trailing ``len(order)`` axes of *x* by *order*,
+    leaving the leading batch axes in place."""
+    n_lead = x.ndim - len(order)
+    return x.permute(*range(n_lead), *(n_lead + i for i in order))
 
 
 # -----------------------------------------------------------------------------
@@ -121,6 +134,179 @@ def _frac_from_trig(u, sin_u, cos_u, dt):
         1.0 / 120.0 + w2 * (-1.0 / 5040.0))))
     return (torch.where(small, re_t, (cos_u - 1.0) * inv_u),
             torch.where(small, im_t, sin_u * inv_u))
+
+
+# -----------------------------------------------------------------------------
+# K2: the second-order integral lattice
+# -----------------------------------------------------------------------------
+#: |y dt| below which the K2 lattice takes the divided-difference branch.
+_SO_SMALL_Y = 1e-2
+#: y-Taylor terms of that branch: truncation ~ (1e-2)^6/7! ~ 2e-16 rel.
+_SO_SMALL_K = 6
+#: |u dt| below which frac^(k) runs as a Maclaurin series.
+_SO_SERIES_W = 0.2
+#: Maclaurin terms: 0.2^13/13! ~ 1e-19 relative.
+_SO_SERIES_J = 12
+#: Lattice-size complex128 arrays per segment that a chunked K2
+#: accumulation holds at once: up to four inside the build (the general
+#: form, the series, a Horner step's product and sum), the result and
+#: what its caller derives from it.
+_SO_LATTICE_TEMPS = 6
+
+
+@functools.lru_cache(maxsize=None)
+def _frac_divdiff_static(n: int):
+    """Static coefficients of :func:`_frac_divdiff_coeffs` for
+    k = 1..n, host numpy: the series and closed-form polynomials in
+    w = a + b, split binomially over the two generators,
+
+        M[k, r, s] = i^{r+s} / ((r+s+k+1) r! s!),
+        B[k, r, s] = (-i)^{r+s} / (r! s!)   for r+s <= k,
+
+    both complex (n, J+1, J+1), and the scalars (-1)^k k! and -1/k!.
+    """
+    J = _SO_SERIES_J
+    m = np.zeros((n, J + 1, J + 1), dtype=complex)
+    b = np.zeros((n, J + 1, J + 1), dtype=complex)
+    for k in range(1, n + 1):
+        for r in range(J + 1):
+            for s in range(J + 1 - r):
+                j = r + s
+                m[k - 1, r, s] = (1.0, 1j, -1.0, -1j)[j % 4] / (
+                    (j + k + 1) * math.factorial(r) * math.factorial(s))
+                if j <= k:
+                    b[k - 1, r, s] = (1.0, -1j, -1.0, 1j)[j % 4] / (
+                        math.factorial(r) * math.factorial(s))
+    facts = np.array([math.factorial(k) for k in range(1, n + 1)], float)
+    sgn_fact = (-1.0) ** np.arange(1, n + 1) * facts
+    return m, b, sgn_fact, -1.0 / facts
+
+
+def _frac_divdiff_coeffs(a: torch.Tensor, b: torch.Tensor, dt: torch.Tensor,
+                         n: int, sin_u: torch.Tensor, cos_u: torch.Tensor
+                         ) -> torch.Tensor:
+    r"""Coefficients D_k(u) = -frac^{(k+1)}(u)/(k+1)!, k = 0..n-1, of the
+    divided difference
+
+        (frac(u) - frac(u + y))/y = sum_k D_k(u) y^k
+
+    of frac(u) = (e^{i u dt} - 1)/u on the lattice u dt = a[o] + b[ij].
+    a (..., n_a), b (..., n_b), dt (...); sin_u, cos_u (..., n_a, n_b)
+    are sin/cos of u dt.  Returns complex (n, ..., n_a, n_b).
+
+    The derivatives come from the closed form
+
+        frac^{(k)}(u) = (-1)^k k!/u^{k+1} (e^{i u dt} S_k(-i u dt) - 1),
+        S_k(v) = sum_{j<=k} v^j/j!,
+
+    for |u dt| > _SO_SERIES_W and from the Maclaurin series
+    frac^{(k)} = (i dt)^{k+1} sum_j (i u dt)^j/((j+k+1) j!) below it;
+    both are polynomials in u dt evaluated from 1-D power stacks of a
+    and b (:func:`_frac_divdiff_static`), as in the JAX package.
+    """
+    m, bm, sgn_fact, inv_fact = (torch.as_tensor(x, device=a.device)
+                                 for x in _frac_divdiff_static(n))
+    J = _SO_SERIES_J
+    w = a[..., :, None] + b[..., None, :]
+    small = torch.abs(w) <= _SO_SERIES_W
+    k_shape = (n,) + (1,) * w.ndim
+
+    def powers(v):                                        # (..., len, J+1)
+        return torch.cumprod(torch.cat(
+            [torch.ones_like(v)[..., None],
+             v[..., None].expand(*v.shape, J)], -1), -1).to(config.COMPLEX)
+    apow, bpow = powers(a), powers(b)
+
+    def poly(coeffs):
+        t = torch.einsum('krs,...or->k...os', coeffs, apow)
+        return torch.einsum('k...os,...ms->k...om', t, bpow)
+
+    # series: (i dt)^{k+1} sum_j ..., k = 1..n
+    i_cyc = torch.as_tensor([(1.0, 1j, -1.0, -1j)[(k + 1) % 4]
+                             for k in range(1, n + 1)],
+                            dtype=config.COMPLEX, device=a.device)
+    dt_pow = dt[None] ** torch.arange(
+        2, n + 2, dtype=dt.dtype, device=dt.device).reshape(
+        (n,) + (1,) * dt.ndim)
+    series = poly(m) * (i_cyc.reshape((n,) + (1,) * dt.ndim)
+                        * dt_pow)[..., None, None]
+
+    # closed form: (e^{iw} S_k - 1) (-1)^k k! (dt/w)^{k+1}
+    base = dt[..., None, None] / torch.where(small, 1.0, w)   # 1/u
+    u_pow = torch.cumprod(torch.cat(
+        [(base * base)[None], base.expand(n - 1, *base.shape)]), 0)
+    closed = (torch.complex(cos_u, sin_u) * poly(bm) - 1.0) \
+        * (u_pow * sgn_fact.reshape(k_shape))
+    return torch.where(small, series, closed) * inv_fact.reshape(k_shape)
+
+
+def _second_order_integral_single(omega: torch.Tensor, eigvals: torch.Tensor,
+                                  dt: torch.Tensor) -> torch.Tensor:
+    r"""K2: the nested second-order integral I_{ijmn}(omega) of segments
+    with eigenvalues *eigvals* (..., d) and durations *dt* (...), for
+    omega (n_w,).
+
+    With x = Omega_ij - omega, y = omega + Omega_mn, z = x + y::
+
+        y != 0:  ( frac(x) - frac(z) ) / y
+        y == 0, x != 0:  ( frac(x) - i dt e^{i x dt} ) / x
+        y == 0, x == 0:  dt^2 / 2
+
+    frac(u) = (e^{i u dt} - 1)/u, frac(0) = i dt.  Where
+    0 < |y dt| < _SO_SMALL_Y the general form, whose two terms cancel,
+    is replaced by the divided-difference series
+    sum_{k < _SO_SMALL_K} D_k(x) y^k (:func:`_frac_divdiff_coeffs`):
+    at grazing resonances (|y dt| ~ 1e-10) the general form keeps only
+    ~eps/|y dt| of relative precision.  The JAX package's f64 lattice
+    has no such branch.
+
+    Returns complex (..., n_w, d, d, d, d) indexed (o, i, j, m, n).
+    """
+    d = eigvals.shape[-1]
+    lead = eigvals.shape[:-1]
+    n_w = omega.shape[-1]
+    dE = (eigvals[..., :, None] - eigvals[..., None, :]).reshape(*lead,
+                                                                  d * d)
+    dt_o = dt[..., None, None]
+    x = dE[..., None, :] - omega[:, None]                 # (o, ij)
+    y = omega[:, None] + dE[..., None, :]                 # (o, mn)
+    z = dE[..., :, None] + dE[..., None, :]               # (ij, mn)
+
+    # sin/cos(x dt) by angle addition of -omega dt and Omega_ij dt
+    a = -omega * dt[..., None]                            # (o,)
+    sa, ca = torch.sin(a)[..., :, None], torch.cos(a)[..., :, None]
+    b = dE * dt[..., None]                                # (ij,)
+    sb, cb = torch.sin(b)[..., None, :], torch.cos(b)[..., None, :]
+    sin_x = sb * ca + cb * sa
+    cos_x = cb * ca - sb * sa
+
+    f_x = torch.complex(*_frac_from_trig(x, sin_x, cos_x, dt_o))
+    zdt = z * dt_o
+    f_z = torch.complex(*_frac_from_trig(z, torch.sin(zdt), torch.cos(zdt),
+                                         dt_o))
+    mask_y = y != 0.0
+    r_y = 1.0 / torch.where(mask_y, y, 1.0)
+    general = (f_x[..., :, :, None] - f_z[..., None, :, :]) \
+        * r_y[..., :, None, :]                            # (o, ij, mn)
+
+    # divided-difference series, Horner in y
+    small_y = mask_y & (torch.abs(y * dt_o) < _SO_SMALL_Y)
+    dks = _frac_divdiff_coeffs(a, b, dt, _SO_SMALL_K, sin_x, cos_x)
+    y_b = y[..., :, None, :]
+    taylor = dks[-1][..., None]
+    for k in range(_SO_SMALL_K - 2, -1, -1):
+        taylor = dks[k][..., None] + y_b * taylor
+    general = torch.where(small_y[..., :, None, :], taylor, general)
+
+    # y == 0 limit, the same for every (m, n)
+    mask_x = x != 0.0
+    r_x = 1.0 / torch.where(mask_x, x, 1.0)
+    num = f_x - torch.complex(-sin_x * dt_o, cos_x * dt_o)
+    limit = (dt_o * dt_o / 2).expand_as(x).to(config.COMPLEX)
+    special = torch.where(mask_x, num * r_x, limit)
+    out = torch.where(mask_y[..., :, None, :], general,
+                      special[..., :, :, None])
+    return out.reshape(*lead, n_w, d, d, d, d)
 
 
 def _ctrlmat_step_terms(eigvals, eigvecs, propagators, omega, basis,
@@ -259,25 +445,26 @@ def _ctrlmat_step_contract(n_opers_transformed, integral, basis_transformed,
     Returns the per-step control matrices (G, n_nops, n_b, n_w).
     """
     G, n_w, d = integral.shape[-4:-1]
+    lead = integral.shape[:-4]
     n_nops = n_opers_transformed.shape[-4]
     n_basis = basis_transformed.shape[-3]
-    p_mat = (integral * phase_factors[..., None, None]).reshape(G, n_w,
-                                                                d * d)
-    b_fac = n_opers_transformed.permute(1, 2, 3, 0).reshape(G, d * d,
-                                                            n_nops)
-    c_fac = basis_transformed.permute(0, 3, 2, 1).reshape(G, d * d,
-                                                          n_basis)
+    p_mat = (integral * phase_factors[..., None, None]).reshape(
+        *lead, G, n_w, d * d)
+    b_fac = n_opers_transformed.movedim(-4, -1).reshape(*lead, G, d * d,
+                                                        n_nops)
+    c_fac = _perm_tail(basis_transformed, 0, 3, 2, 1).reshape(
+        *lead, G, d * d, n_basis)
     d_mat = (b_fac[..., :, None] * c_fac[..., None, :]).reshape(
-        G, d * d, n_nops * n_basis)
-    return (p_mat @ d_mat).reshape(G, n_w, n_nops, n_basis).permute(
-        0, 2, 3, 1)
+        *lead, G, d * d, n_nops * n_basis)
+    return _perm_tail((p_mat @ d_mat).reshape(*lead, G, n_w, n_nops,
+                                              n_basis), 0, 2, 3, 1)
 
 
-def _pick_chunk(G: int, n_omega: int, d: int, budget_bytes: int) -> int:
-    """Segments per accumulation step so that the (chunk, n_omega, d, d)
-    complex128 integral table stays within *budget_bytes*."""
-    per_seg = max(n_omega * d * d * 16, 1)
-    return max(1, min(G, budget_bytes // per_seg))
+def _pick_chunk(G: int, per_segment: int, budget_bytes: int) -> int:
+    """Segments per step of an accumulation over *G* segments whose
+    working set is *per_segment* bytes per segment, so that a step stays
+    within *budget_bytes*."""
+    return max(1, min(G, budget_bytes // max(per_segment, 1)))
 
 
 def calculate_control_matrix_from_scratch(
@@ -341,7 +528,8 @@ def calculate_control_matrix_from_scratch(
         return step.sum(0), intermediates
 
     mode = config.contraction_mode(device, contract)
-    chunk = _pick_chunk(G, len(omega), d, config.memory_budget(
+    # the (chunk, n_w, d, d) complex128 integral table
+    chunk = _pick_chunk(G, len(omega) * d * d * 16, config.memory_budget(
         device, budget_bytes=budget_bytes))
     pad = (-G) % chunk
     if pad:
@@ -398,26 +586,683 @@ def calculate_pulse_correlation_filter_function(
 
 
 # -----------------------------------------------------------------------------
-# K17: infidelity
+# K10: second-order filter function
+# -----------------------------------------------------------------------------
+def _second_order_step_terms(eigvals, eigvecs, propagators, omega, basis,
+                             n_opers, n_coeffs, dt, t):
+    """K10 prerequisites for pulses whose first-order intermediates are
+    not cached: (n_opers_transformed, basis_transformed, per-step
+    control matrices (G, n_nops, n_b, n_w), their cumulative sums up to
+    segment G-2)."""
+    (_, n_t, b_t, ph, integral) = _ctrlmat_step_terms(
+        eigvals, eigvecs, propagators[..., :-1, :, :], omega, basis,
+        n_opers, n_coeffs, dt, t[..., :-1])
+    step = _ctrlmat_step_contract(n_t, integral, b_t, ph)
+    return n_t, b_t, step, step.cumsum(-4)[..., :-1, :, :, :]
+
+
+def _pad_cumulative(step: torch.Tensor, cumulative: torch.Tensor
+                    ) -> torch.Tensor:
+    """The cumulative control matrices with a zero matrix in front:
+    segment 0 has no complete-step term."""
+    return torch.cat([torch.zeros_like(step[..., :1, :, :, :]), cumulative],
+                     -4)
+
+
+def _noise_basis_products(n_opers_transformed, basis_transformed
+                          ) -> torch.Tensor:
+    """nob[g, a, k, (i j)] = n_t[a, g, i, j] * b_t[g, k, j, i]."""
+    nob = torch.einsum('...agij,...gkji->...gakij', n_opers_transformed,
+                       basis_transformed)
+    return nob.reshape(*nob.shape[:-2], -1)
+
+
+def _second_order_incomplete_contract(int2: torch.Tensor, nob: torch.Tensor
+                                      ) -> torch.Tensor:
+    r"""The incomplete-step contraction sum_g 'oijmn,akij,blmn->abklo'
+    of segment lattices *int2* (..., g, n_w, d, d, d, d) against
+    *nob* (..., g, n_nops, n_b, d^2), as two complex128 matmuls::
+
+        T[g, (o ij), B] = I[g, (o ij), (mn)] @ nob^T[g, (mn), B]
+        S[A, (o B)]     = nob[A, (g ij)] @ T'[(g ij), (o B)]
+
+    with A = B = (a k).  Returns (..., n_nops, n_nops, n_b, n_b, n_w).
+    """
+    g, n_nops, n_basis, d2 = nob.shape[-4:]
+    lead = nob.shape[:-4]
+    n_w = int2.shape[-5]
+    A = n_nops * n_basis
+    nob = nob.reshape(*lead, g, A, d2)
+    t = int2.reshape(*lead, g, n_w * d2, d2) @ nob.mT
+    t = t.reshape(*lead, g, n_w, d2, A).transpose(-3, -2).reshape(
+        *lead, g * d2, n_w * A)
+    s = nob.transpose(-3, -2).reshape(*lead, A, g * d2) @ t
+    return _perm_tail(s.reshape(*lead, n_nops, n_basis, n_w, n_nops,
+                                n_basis), 0, 3, 1, 4, 2)
+
+
+def _second_order_complete(ctrlmat_step: torch.Tensor,
+                           cumul_padded: torch.Tensor) -> torch.Tensor:
+    r"""The complete-step term sum_g conj(B_step^(g))_{ak}
+    B_cumul^(g-1)_{bl}(w) as one (A x G) @ (G x B) matmul per
+    frequency.  Returns (..., n_nops, n_nops, n_b, n_b, n_w)."""
+    G, n_nops, n_basis, n_w = ctrlmat_step.shape[-4:]
+    lead = ctrlmat_step.shape[:-4]
+    A = n_nops * n_basis
+    x = ctrlmat_step.conj().reshape(*lead, G, A, n_w).movedim(-1, -3)
+    y = cumul_padded.reshape(*lead, G, A, n_w).movedim(-1, -3)
+    comp = (x.mT @ y).reshape(*lead, n_w, n_nops, n_basis, n_nops, n_basis)
+    return _perm_tail(comp, 1, 3, 2, 4, 0)
+
+
+def _lattice_chunk(eigvals: torch.Tensor, n_w: int, extra: int,
+                   budget_bytes: Optional[int] = None) -> int:
+    """Segments per step of a chunked second-order accumulation: each
+    segment (with every leading batch index) costs the
+    :data:`_SO_LATTICE_TEMPS` lattice-size arrays of its K2 build plus
+    *extra* complex128 elements per (w, ij) of the contraction."""
+    G, d = eigvals.shape[-2:]
+    batch = math.prod(eigvals.shape[:-2])
+    per_g = batch * n_w * d * d * (_SO_LATTICE_TEMPS * d * d + extra) * 16
+    return _pick_chunk(G, per_g, config.memory_budget(
+        eigvals.device, budget_bytes=budget_bytes))
+
+
+def _second_order_total(eigvals, n_opers_transformed, basis_transformed,
+                        ctrlmat_step, cumul_padded, omega, dt,
+                        budget_bytes: Optional[int] = None) -> torch.Tensor:
+    r"""K10 total without per-step caching: the complete steps as one
+    batched matmul (:func:`_second_order_complete`), the incomplete
+    steps as the two-stage matmul of
+    :func:`_second_order_incomplete_contract` over chunks of segments
+    whose K2 lattices fit :func:`.config.memory_budget`.
+
+    eigvals (..., G, d), n_opers_transformed (..., n_nops, G, d, d),
+    basis_transformed (..., G, n_b, d, d), ctrlmat_step and
+    cumul_padded (..., G, n_nops, n_b, n_w), dt (..., G).  Returns
+    (..., n_nops, n_nops, n_b, n_b, n_w).
+    """
+    G = eigvals.shape[-2]
+    nob = _noise_basis_products(n_opers_transformed, basis_transformed)
+    n_nops, n_basis = nob.shape[-3:-1]
+    # the first stage's product and its transposed copy
+    chunk = _lattice_chunk(eigvals, len(omega), 2 * n_nops * n_basis,
+                           budget_bytes)
+    total = _second_order_complete(ctrlmat_step, cumul_padded)
+    for start in range(0, G, chunk):
+        sl = slice(start, start + chunk)
+        int2 = _second_order_integral_single(omega, eigvals[..., sl, :],
+                                             dt[..., sl])
+        total = total + _second_order_incomplete_contract(
+            int2, nob[..., sl, :, :, :])
+    return total
+
+
+def _second_order_steps(eigvals, n_opers_transformed, basis_transformed,
+                        ctrlmat_step, cumul_padded, omega, dt,
+                        cache_cumulative: bool,
+                        show_progressbar: bool = False):
+    """K10 of one pulse segment by segment, keeping what the caches
+    need.  Returns (F^(2), the K2 lattices (G, n_w, d, d, d, d), the
+    complete-step term, the cumulative F^(2) after each segment
+    (G, ...) or None)."""
+    nob = _noise_basis_products(n_opers_transformed, basis_transformed)
+    complete = incomplete = 0
+    lattices, cumulative = [], []
+    for g in util.progressbar_range(len(eigvals),
+                                    show_progressbar=show_progressbar):
+        int2 = _second_order_integral_single(omega, eigvals[g], dt[g])
+        incomplete = incomplete + _second_order_incomplete_contract(
+            int2[None], nob[g:g + 1])
+        complete = complete + _second_order_complete(
+            ctrlmat_step[g:g + 1], cumul_padded[g:g + 1])
+        lattices.append(int2)
+        if cache_cumulative:
+            cumulative.append(incomplete + complete)
+    return (incomplete + complete, torch.stack(lattices), complete,
+            torch.stack(cumulative) if cache_cumulative else None)
+
+
+def calculate_second_order_filter_function_from_scratch(
+        eigvals: torch.Tensor, eigvecs: torch.Tensor,
+        propagators: torch.Tensor, omega, basis: Union[Basis, torch.Tensor],
+        n_opers, n_coeffs, dt,
+        intermediates: Optional[Dict[str, Any]] = None,
+        show_progressbar: bool = False, cache_intermediates: bool = False,
+        cache_cumulative: bool = False,
+        budget_bytes: Optional[int] = None):
+    r"""K10: the second-order filter function F^(2)_{ab,kl}(w)
+    (n_nops, n_nops, n_b, n_b, n_w) of one pulse, on the device of
+    *eigvals*.
+
+    Per segment g the incomplete step contracts the K2 lattice with the
+    noise-operator/basis products of g; the complete steps pair g's
+    per-step control matrix with the cumulative one of the segments
+    before it.  The per-step control matrices are taken from
+    *intermediates* (the first-order cache) where they are there.
+
+    Without ``cache_intermediates`` the segment sum runs as batched
+    matmuls in chunks that fit :func:`.config.memory_budget`
+    (*budget_bytes* overrides it).  With it, segment by segment, and
+    the result comes with a dict of the intermediates:
+    ``second_order_integral`` (G, n_w, d, d, d, d),
+    ``second_order_complete_steps`` and, with ``cache_cumulative``,
+    ``filter_function_2_step_cumulative`` (G, ...), F^(2) of each
+    prefix.
+    """
+    device = eigvals.device
+
+    def real(x):
+        return torch.as_tensor(x, dtype=config.REAL, device=device)
+
+    omega, n_coeffs, dt = real(omega), real(n_coeffs), real(dt)
+    t = torch.cat([dt.new_zeros(1), torch.cumsum(dt, 0)])
+    basis = (basis.tensor(device) if isinstance(basis, Basis)
+             else torch.as_tensor(basis, dtype=config.COMPLEX,
+                                  device=device))
+    n_opers = torch.as_tensor(n_opers, dtype=config.COMPLEX, device=device)
+
+    keys = ('n_opers_transformed', 'basis_transformed', 'control_matrix_step',
+            'control_matrix_step_cumulative')
+    have = intermediates is not None and all(k in intermediates
+                                             for k in keys)
+    if have:
+        n_t, b_t, step, cumul = (intermediates[k] for k in keys)
+    else:
+        n_t, b_t, step, cumul = _second_order_step_terms(
+            eigvals, eigvecs, propagators, omega, basis, n_opers, n_coeffs,
+            dt, t)
+    cumul_padded = _pad_cumulative(step, cumul)
+
+    if not cache_intermediates:
+        return _second_order_total(eigvals, n_t, b_t, step, cumul_padded,
+                                   omega, dt, budget_bytes)
+    result, lattices, complete, cumulative = _second_order_steps(
+        eigvals, n_t, b_t, step, cumul_padded, omega, dt, cache_cumulative,
+        show_progressbar)
+    out = dict(intermediates or {})
+    out['second_order_integral'] = lattices
+    out['second_order_complete_steps'] = complete
+    if cache_cumulative:
+        out['filter_function_2_step_cumulative'] = cumulative
+    for key, value in zip(keys, (n_t, b_t, step, cumul)):
+        out.setdefault(key, value)
+    return result, out
+
+
+def trapezoid_weights(omega: torch.Tensor) -> torch.Tensor:
+    """Quadrature weights w with sum_o w_o f_o == trapezoid(f, omega),
+    for folding frequency integrals into contractions."""
+    d = torch.diff(omega)
+    return torch.cat([d[:1] / 2, (d[1:] + d[:-1]) / 2, d[-1:] / 2])
+
+
+def _spectral_weights(spectrum: torch.Tensor, omega: torch.Tensor, n: int
+                      ) -> torch.Tensor:
+    """S_a(w) w_trapz(w) / 2 pi (n, n_w) of a real diagonal spectrum
+    (ndim 1 or 2, parsed), the weights that fold a frequency integral
+    into a contraction."""
+    return spectrum.expand(n, -1) * trapezoid_weights(omega) / (2 * math.pi)
+
+
+def _folded_decay_amplitudes(control_matrix: torch.Tensor,
+                             weights: torch.Tensor) -> torch.Tensor:
+    """Gamma[..., a, k, l] = sum_w weights[a, w] B*_{ak}(w) B_{al}(w) of
+    control matrices (..., n, n_b, n_w): the decay amplitudes of a real
+    diagonal spectrum without the (n, n_b, n_b, n_w) integrand."""
+    return torch.einsum('...ako,ao,...alo->...akl', control_matrix.conj(),
+                        weights.to(config.COMPLEX), control_matrix).real
+
+
+def _second_order_diag_shifts(eigvals, n_opers_transformed,
+                              basis_transformed, ctrlmat_step, cumul_padded,
+                              omega, dt, weights,
+                              budget_bytes: Optional[int] = None
+                              ) -> torch.Tensor:
+    r"""Frequency shifts Delta[a, k, l] for diagonal spectra without the
+    (a, b, k, l, w) second-order filter function.
+
+    A diagonal spectrum reads only the a == b diagonal of F^(2).  The
+    complete steps contract over (g, w) jointly in one a-batched
+    matmul; the incomplete steps reduce each chunk's K2 lattice over
+    w first (ell = weights @ lattice, (g, a, ij, mn)) and sandwich the
+    result between the noise-operator/basis products.  The chunks of
+    segments fit :func:`.config.memory_budget` (*budget_bytes*
+    overrides it).
+
+    Shapes as :func:`_second_order_total`; *weights* (n_nops, n_w)
+    real, S_a(w) w_trapz / 2 pi.  Returns complex (..., n_nops, n_b,
+    n_b); its real part is the physical shift.
+    """
+    G, d = eigvals.shape[-2:]
+    lead = eigvals.shape[:-2]
+    d2 = d * d
+    n_nops, n_basis, n_w = ctrlmat_step.shape[-3:]
+    nob = _noise_basis_products(n_opers_transformed, basis_transformed)
+    w = weights.to(config.COMPLEX)
+
+    # complete steps: (a, k, (g o)) @ (a, (g o), l), weight folded
+    xs = _perm_tail(ctrlmat_step.conj(), 1, 2, 0, 3).reshape(
+        *lead, n_nops, n_basis, G * n_w) * w.repeat(1, G)[:, None, :]
+    ys = _perm_tail(cumul_padded, 1, 0, 3, 2).reshape(*lead, n_nops,
+                                                      G * n_w, n_basis)
+    shifts = xs @ ys
+
+    chunk = _lattice_chunk(eigvals, n_w, 0, budget_bytes)
+    for start in range(0, G, chunk):
+        sl = slice(start, start + chunk)
+        int2 = _second_order_integral_single(omega, eigvals[..., sl, :],
+                                             dt[..., sl])
+        g = int2.shape[-6]
+        ell = w @ int2.reshape(*lead, g, n_w, d2 * d2)    # (g, a, ij mn)
+        ell = ell.reshape(*lead, g, n_nops, d2, d2)
+        nob_c = nob[..., sl, :, :, :]                     # (g, a, k, ij)
+        shifts = shifts + (nob_c @ (ell @ nob_c.mT)).sum(-4)
+    return shifts
+
+
+# -----------------------------------------------------------------------------
+# K12: integrand
 # -----------------------------------------------------------------------------
 def _get_integrand(spectrum, omega: torch.Tensor, idx: np.ndarray,
-                   filter_function: torch.Tensor) -> torch.Tensor:
-    """Real integrand Re S(w) F(w) of the fidelity filter function
-    (..., n_nops, n_nops, n_w) at the noise indices *idx*: the diagonal
-    for a spectrum of ndim 1 or 2, the (idx, idx) block for a
-    cross-spectrum of ndim 3."""
-    s = util.parse_spectrum(spectrum, omega, idx,
-                            device=filter_function.device)
-    idx = torch.as_tensor(idx, device=filter_function.device)
-    if s.ndim in (1, 2):
-        f = filter_function[..., idx, idx, :]
+                   which_pulse: str, which_FF: str,
+                   control_matrix=None,
+                   filter_function: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """The real integrand S(w) F(w) at the noise indices *idx*, from a
+    filter function or from a control matrix (one, or a [left, right]
+    pair), for a spectrum of ndim 1 or 2 (diagonal) or 3
+    (cross-spectra).
+
+    'fidelity' gives (..., n, n, n_w) for cross-spectra and
+    (..., n, n_w) otherwise; 'generalized' adds the basis axes
+    (k, l) before the frequency; ``which_pulse='correlations'`` takes a
+    pulse-resolved control matrix and gives two leading pulse axes.
+    Leading batch axes of the filter function or control matrix are
+    kept.
+    """
+    if filter_function is not None:
+        device = filter_function.device
+    elif isinstance(control_matrix, (list, tuple)):
+        device = control_matrix[0].device
     else:
-        f = filter_function[..., idx[:, None], idx, :]
-    if s.is_complex():
-        return f.real * s.real - f.imag * s.imag
-    return f.real * s
+        device = control_matrix.device
+    s = util.parse_spectrum(spectrum, omega, idx, device=device)
+    idx = torch.as_tensor(idx, device=device)
+
+    if filter_function is not None:
+        f = filter_function
+        if which_FF == 'generalized':
+            f = f.movedim((-5, -4), (-3, -2))     # noise axes next to w
+        if s.ndim in (1, 2):
+            f = f[..., idx, idx, :]
+        else:
+            f = f[..., idx[:, None], idx, :]
+        integrand = f.real * s.real
+        if s.is_complex():
+            integrand = integrand - f.imag * s.imag
+        if which_FF == 'generalized':
+            if s.ndim in (1, 2):
+                integrand = integrand.movedim(-2, -4)
+            else:
+                integrand = integrand.movedim((-3, -2), (-5, -4))
+        return integrand
+
+    if isinstance(control_matrix, (list, tuple)):
+        left, right = control_matrix[0].conj(), control_matrix[1]
+    else:
+        left, right = control_matrix.conj(), control_matrix
+    left, right = left[..., idx, :, :], right[..., idx, :, :]
+    if s.ndim in (1, 2):
+        if which_pulse == 'correlations':
+            sub = ('g...ko,...o,h...ko->gh...o' if which_FF == 'fidelity'
+                   else 'g...ko,...o,h...lo->gh...klo')
+        else:
+            sub = ('...ko,...o,...ko->...o' if which_FF == 'fidelity'
+                   else '...ko,...o,...lo->...klo')
+    elif which_pulse == 'correlations':
+        sub = ('gako,abo,hbko->ghabo' if which_FF == 'fidelity'
+               else 'gako,abo,hblo->ghabklo')
+    else:
+        sub = ('...ako,abo,...bko->...abo' if which_FF == 'fidelity'
+               else '...ako,abo,...blo->...abklo')
+    return torch.einsum(sub, left, s.to(config.COMPLEX), right).real
 
 
+def _integrate_2pi(integrand: torch.Tensor, omega: torch.Tensor
+                   ) -> torch.Tensor:
+    """Trapezoid over the last axis / 2 pi."""
+    return util.integrate(integrand, omega) / (2 * math.pi)
+
+
+# -----------------------------------------------------------------------------
+# K13 / K14: decay amplitudes and frequency shifts
+# -----------------------------------------------------------------------------
+@util.parse_optional_parameters(which=('total', 'correlations'))
+def calculate_decay_amplitudes(pulse, spectrum, omega,
+                               n_oper_identifiers=None, which: str = 'total',
+                               show_progressbar: bool = False,
+                               cache_intermediates: bool = False,
+                               memory_parsimonious: bool = False
+                               ) -> torch.Tensor:
+    r"""K13: Gamma_{ab,kl} = int dw/2pi B*_{ak} S_{ab} B_{bl} of a
+    :class:`~.pulse_sequence.PulseSequence`, on its device:
+    (n, n_b, n_b) for a spectrum of ndim 1 or 2, (n, n, n_b, n_b) for
+    cross-spectra, with two leading pulse axes for
+    ``which='correlations'``.
+
+    From the control matrix and a real diagonal spectrum the trapezoid
+    weights and S/2pi fold into one contraction 'ako,ao,alo->akl', so the
+    (n, n_b, n_b, n_w) integrand never exists (19 GB at the flagship).
+    Every other case integrates the integrand; ``memory_parsimonious``
+    then builds it for one basis index k at a time.
+    """
+    idx = util.get_indices_from_identifiers(pulse.n_oper_identifiers,
+                                            n_oper_identifiers)
+    omega = torch.as_tensor(omega, dtype=config.REAL, device=pulse.device)
+    if which == 'total':
+        if pulse.is_cached('filter_function_gen'):
+            control_matrix = None
+            filter_function = pulse.get_filter_function(
+                omega, which='generalized')
+        else:
+            control_matrix = pulse.get_control_matrix(
+                omega, show_progressbar, cache_intermediates)
+            filter_function = None
+    else:
+        if pulse.is_cached('omega') and not torch.equal(pulse.omega, omega):
+            raise ValueError('Pulse correlation decay amplitudes requested '
+                             'but omega not equal to cached frequencies.')
+        if pulse.is_cached('filter_function_pc_gen'):
+            control_matrix = None
+            filter_function = pulse.get_pulse_correlation_filter_function(
+                which='generalized')
+        else:
+            control_matrix = pulse.get_pulse_correlation_control_matrix()
+            filter_function = None
+
+    s = util.parse_spectrum(spectrum, omega, idx, device=pulse.device)
+    if (which == 'total' and control_matrix is not None and s.ndim <= 2
+            and not s.is_complex()):
+        return _folded_decay_amplitudes(
+            control_matrix[torch.as_tensor(idx, device=pulse.device)],
+            _spectral_weights(s, omega, len(idx)))
+
+    if not memory_parsimonious:
+        return _integrate_2pi(_get_integrand(
+            s, omega, idx, which, 'generalized',
+            control_matrix=control_matrix, filter_function=filter_function),
+            omega)
+
+    slices = []
+    for k in util.progressbar_range(len(pulse.basis),
+                                    show_progressbar=show_progressbar,
+                                    desc='Integrating'):
+        if control_matrix is not None:
+            part = _get_integrand(
+                s, omega, idx, which, 'generalized',
+                control_matrix=[control_matrix[..., k:k + 1, :],
+                                control_matrix])
+        else:
+            part = _get_integrand(
+                s, omega, idx, which, 'generalized',
+                filter_function=filter_function[..., k:k + 1, :, :])
+        slices.append(_integrate_2pi(part, omega))
+    return torch.cat(slices, dim=-2)
+
+
+def calculate_frequency_shifts(pulse, spectrum, omega,
+                               n_oper_identifiers=None,
+                               show_progressbar: bool = False
+                               ) -> torch.Tensor:
+    r"""K14: Delta_{ab,kl} = int dw/2pi S_{ab}(w) F^(2)_{ab,kl}(w) of a
+    :class:`~.pulse_sequence.PulseSequence`, from its (cached)
+    second-order filter function; shapes as
+    :func:`calculate_decay_amplitudes`."""
+    idx = util.get_indices_from_identifiers(pulse.n_oper_identifiers,
+                                            n_oper_identifiers)
+    omega = torch.as_tensor(omega, dtype=config.REAL, device=pulse.device)
+    ff2 = pulse.get_filter_function(omega, order=2,
+                                    show_progressbar=show_progressbar)
+    return _integrate_2pi(_get_integrand(spectrum, omega, idx, 'total',
+                                         'generalized', filter_function=ff2),
+                          omega)
+
+
+# -----------------------------------------------------------------------------
+# K15: cumulant function
+# -----------------------------------------------------------------------------
+#: Index letters of the four basis elements in tr(C_p0 C_p1 C_p2 C_p3).
+_TRACE_SLOTS = ('ab', 'bc', 'cd', 'da')
+
+
+def _trace_contract_basis(coeff: torch.Tensor, basis: Basis, pattern: str
+                          ) -> torch.Tensor:
+    """sum_kl coeff[..., k, l] tr(C_p0 C_p1 C_p2 C_p3) -> (..., i, j),
+    with *pattern* = p0 p1 p2 p3 a permutation of 'ijkl', contracted
+    through the basis without the n^4 trace tensor.
+
+    The contraction runs as four pairwise einsums, l, then k, then i,
+    then j, each output keeping only the matrix indices a later operand
+    needs: O(n^2 d^2 + n d^4) per leading index.  (A five-operand
+    ``torch.einsum`` would contract left to right without a path
+    optimizer.)
+    """
+    b = basis.tensor(coeff.device)
+    slot = {p: _TRACE_SLOTS[pos] for pos, p in enumerate(pattern)}
+
+    def kept(have, later):
+        return ''.join(sorted(set(have) & set(later)))
+
+    y = torch.einsum(f"...kl,l{slot['l']}->...k{slot['l']}",
+                     coeff.to(config.COMPLEX), b)
+    w_idx = kept(slot['k'] + slot['l'], slot['i'] + slot['j'])
+    w = torch.einsum(f"...k{slot['l']},k{slot['k']}->...{w_idx}", y, b)
+    z_idx = kept(w_idx + slot['i'], slot['j'])
+    z = torch.einsum(f"...{w_idx},i{slot['i']}->...i{z_idx}", w, b)
+    return torch.einsum(f"...i{z_idx},j{slot['j']}->...ij", z, b).real
+
+
+def _cumulant_trace_combos(basis: Basis) -> Tuple[np.ndarray, np.ndarray]:
+    """Host precombination of the four trace-tensor transposes that
+    Gamma and Delta each contract with: (tg, td) with
+    K = Gamma.tg + Delta.td via '...kl,klij->...ij', cached on the
+    basis."""
+    def compute():
+        tr = basis.four_element_traces.real
+        x1 = tr.transpose(0, 1, 3, 2)                 # T_klji
+        tg = -0.5 * (x1
+                     - tr.transpose(0, 2, 3, 1)       # T_kjli
+                     - tr.transpose(0, 2, 1, 3)       # T_kilj
+                     + tr.transpose(0, 3, 1, 2))      # T_kijl
+        td = -0.5 * (x1
+                     - tr.transpose(1, 0, 3, 2)       # T_lkji
+                     - tr                             # T_klij
+                     + tr.transpose(1, 0, 2, 3))      # T_lkij
+        return np.ascontiguousarray(tg), np.ascontiguousarray(td)
+    return basis._cached('cumulant_trace_combos', compute)
+
+
+def _cumulant_1q_combos(n_basis: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(tg, td) of the single-qubit closed form, in the layout of
+    :func:`_cumulant_trace_combos`: K_0i = K_i0 = 0, K_ij = Gamma_ij
+    off the diagonal, K_ii = -sum_{k != i, k > 0} Gamma_kk, plus
+    Delta_ji - Delta_ij.
+
+    It is the JAX package's K for d = 2, and not the trace combos': the
+    two agree for symmetric Gamma only.  The Gamma of one pair (a, b)
+    of a cross-spectrum, or of one pulse pair of
+    ``which='correlations'``, is not symmetric, and there the trace
+    combos are ~2 % off per pair (sums over the pairs agree)."""
+    eye = np.eye(n_basis)
+    pos = (np.arange(n_basis) > 0).astype(float)
+    inner = np.outer(pos, pos)                            # i, j > 0
+    tg = (np.einsum('ki,lj,ij->klij', eye, eye, inner * (1 - eye))
+          + np.einsum('ij,i,kl,k,ki->klij', eye, pos, eye, pos, eye - 1))
+    td = inner * (np.einsum('kj,li->klij', eye, eye)
+                  - np.einsum('ki,lj->klij', eye, eye))
+    return tg, td
+
+
+def _cumulant_trace_combos_dev(basis: Basis, device
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (tg, td) that the cumulant function contracts Gamma and Delta
+    with, on *device*, cached on the basis per device: the closed form
+    of :func:`_cumulant_1q_combos` for single-qubit Pauli and GGM bases,
+    :func:`_cumulant_trace_combos` otherwise."""
+    device = torch.device(device)
+
+    def upload():
+        combos = (_cumulant_1q_combos(len(basis))
+                  if basis.d == 2 and basis.btype in ('Pauli', 'GGM')
+                  else _cumulant_trace_combos(basis))
+        return tuple(torch.as_tensor(x, device=device) for x in combos)
+    return basis._cached(('cumulant_trace_combos_dev', device), upload)
+
+
+def _cumulant_contract_core(coeff: torch.Tensor, combo: torch.Tensor
+                            ) -> torch.Tensor:
+    """'...kl,klij->...ij' of real coefficients and a trace combo, as one
+    float64 matmul."""
+    n2 = combo.shape[0] * combo.shape[1]
+    out = coeff.reshape(-1, n2) @ combo.reshape(n2, -1)
+    return out.reshape(*coeff.shape[:-2], *combo.shape[2:])
+
+
+@util.parse_optional_parameters(which=('total', 'correlations'))
+def calculate_cumulant_function(
+        pulse, spectrum=None, omega=None, n_oper_identifiers=None,
+        which: str = 'total', second_order: bool = False,
+        decay_amplitudes=None, frequency_shifts=None,
+        show_progressbar: bool = False, memory_parsimonious: bool = False,
+        cache_intermediates: Optional[bool] = None) -> torch.Tensor:
+    r"""K15: the cumulant function K_{a,ij}(tau) (per noise operator, or
+    per pair for cross-spectra) of a
+    :class:`~.pulse_sequence.PulseSequence`, on its device, from the
+    decay amplitudes and, for ``second_order``, the frequency shifts
+    (computed, or given precomputed).
+
+    K = -1/2 [Gamma.(T_klji - T_kjli - T_kilj + T_kijl)
+              + Delta.(T_klji - T_lkji - T_klij + T_lkij)]
+    with T the four-element traces of the basis: for n <= 64 one float64
+    matmul each with the host-precombined combos
+    (:func:`_cumulant_trace_combos_dev`, the single-qubit closed form
+    for d = 2 Pauli and GGM bases), a contraction through the basis
+    above.  ``cache_intermediates`` defaults to *second_order*.
+    """
+    N = len(pulse.basis)
+    if spectrum is None and omega is None:
+        if decay_amplitudes is None or (frequency_shifts is None
+                                        and second_order):
+            raise ValueError('Require either spectrum and frequencies or '
+                             'precomputed decay amplitudes (frequency '
+                             'shifts)')
+    if which == 'correlations' and second_order:
+        raise ValueError('Cannot compute correlation cumulant function for '
+                         'second order terms')
+    if cache_intermediates is None:
+        cache_intermediates = second_order
+
+    if decay_amplitudes is None:
+        decay_amplitudes = calculate_decay_amplitudes(
+            pulse, spectrum, omega, n_oper_identifiers, which,
+            show_progressbar, cache_intermediates, memory_parsimonious)
+    gamma = torch.as_tensor(decay_amplitudes, dtype=config.REAL,
+                            device=pulse.device)
+    delta = None
+    if second_order:
+        if frequency_shifts is None:
+            if memory_parsimonious:
+                warn('Memory parsimonious calculation not implemented for '
+                     'frequency shifts.')
+            frequency_shifts = calculate_frequency_shifts(
+                pulse, spectrum, omega, n_oper_identifiers,
+                show_progressbar)
+        delta = torch.as_tensor(frequency_shifts, dtype=config.REAL,
+                                device=pulse.device)
+        if delta.shape != gamma.shape:
+            raise ValueError('Frequency shifts not same shape as decay '
+                             'amplitudes')
+
+    if N <= 64:
+        tg, td = _cumulant_trace_combos_dev(pulse.basis, pulse.device)
+        k_fn = _cumulant_contract_core(gamma, tg)
+        if second_order:
+            k_fn = k_fn + _cumulant_contract_core(delta, td)
+        return k_fn
+
+    def contract(coeff, patterns):
+        a, b, c, e = (_trace_contract_basis(coeff, pulse.basis, p)
+                      for p in patterns)
+        return -0.5 * (a - b - c + e)
+    k_fn = contract(gamma, ('klji', 'kjli', 'kilj', 'kijl'))
+    if second_order:
+        k_fn = k_fn + contract(delta, ('klji', 'lkji', 'klij', 'lkij'))
+    return k_fn
+
+
+# -----------------------------------------------------------------------------
+# K16: error transfer matrix
+# -----------------------------------------------------------------------------
+def _expm(a: torch.Tensor) -> torch.Tensor:
+    """Matrix exponential of real square matrices (..., n, n): scaling
+    and squaring of the degree-18 Taylor polynomial, with the largest
+    1-norm scaled to <= 1 (truncation < 1/19! ~ 8e-18).
+
+    ``torch.linalg.matrix_exp`` is off by up to 1.4e-13 absolute on
+    matrices of 1-norm ~0.01-0.03, which is where the cumulant functions
+    of weak noise lie; this form keeps ~1e-16 there.  Reading the norm
+    synchronizes with the device once.
+    """
+    norm = a.abs().sum(-2).amax().item()
+    squarings = max(0, math.ceil(math.log2(norm))) if norm > 0 else 0
+    a = a / 2.0**squarings
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    result = eye + a / 18
+    for k in range(17, 0, -1):
+        result = eye + (a @ result) / k
+    for _ in range(squarings):
+        result = result @ result
+    return result
+
+
+def error_transfer_matrix(pulse=None, spectrum=None, omega=None,
+                          n_oper_identifiers=None, second_order: bool = False,
+                          cumulant_function=None,
+                          show_progressbar: bool = False,
+                          memory_parsimonious: bool = False,
+                          cache_intermediates: Optional[bool] = None
+                          ) -> torch.Tensor:
+    r"""K16: the error transfer matrix U_tilde = exp K(tau), K the
+    cumulant function summed over its leading (noise-operator) axes
+    (exponentiated by :func:`_expm`),
+    computed from *pulse*, *spectrum* and *omega*
+    (:func:`calculate_cumulant_function`) or given.  Returns real
+    (n_b, n_b), on the pulse's device (or the given tensor's)."""
+    if cumulant_function is None:
+        if pulse is None or spectrum is None or omega is None:
+            raise ValueError('Require either precomputed cumulant function '
+                             'or pulse, spectrum, and omega as arguments.')
+        cumulant_function = calculate_cumulant_function(
+            pulse, spectrum, omega, n_oper_identifiers, 'total',
+            second_order, show_progressbar=show_progressbar,
+            memory_parsimonious=memory_parsimonious,
+            cache_intermediates=cache_intermediates)
+    if not isinstance(cumulant_function, (torch.Tensor, np.ndarray)):
+        raise TypeError('cumulant_function invalid type: '
+                        f'{type(cumulant_function)}')
+    k_total = torch.as_tensor(cumulant_function, dtype=config.REAL)
+    if k_total.ndim > 2:
+        k_total = k_total.sum(dim=tuple(range(k_total.ndim - 2)))
+    if k_total.ndim != 2 or k_total.shape[0] != k_total.shape[1]:
+        raise ValueError('cumulant_function invalid shape: '
+                         f'{tuple(cumulant_function.shape)}')
+    return _expm(k_total)
+
+
+# -----------------------------------------------------------------------------
+# K17: infidelity
+# -----------------------------------------------------------------------------
 def _nontraceless_trace_correction(basis: Basis) -> np.ndarray:
     """traces_diag_kl = sum_m [tr(C_k C_l C_m C_m) - tr(C_k C_m C_l C_m)]
     computed through the basis, never materializing the trace tensor."""
@@ -502,7 +1347,8 @@ def infidelity(pulse, spectrum, omega, n_oper_identifiers=None,
                              'omega not equal to cached frequencies.')
         filter_function = pulse.get_pulse_correlation_filter_function()
 
-    integrand = _get_integrand(spectrum, omega, idx, filter_function)
+    integrand = _get_integrand(spectrum, omega, idx, which, 'fidelity',
+                               filter_function=filter_function)
     infid = util.integrate(integrand, omega) / (2 * math.pi * pulse.d)
 
     if return_smallness:

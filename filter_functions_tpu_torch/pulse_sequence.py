@@ -11,9 +11,8 @@ explicitly.  The three caches (``_data`` / ``_frequency_data`` /
 ``_intermediates``), their invalidation when omega changes and the
 ``cleanup`` tiers follow the JAX package.
 
-Second-order filter functions, the filter-function derivative and
-concatenation (``@``) are not ported yet and raise
-``NotImplementedError``.
+The filter-function derivative and concatenation (``@``) are not
+ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -253,7 +252,7 @@ class PulseSequence:
 
     def __getitem__(self, key) -> 'PulseSequence':
         """Segment slicing; a prefix slice reuses the cached cumulative
-        control matrix."""
+        control matrix and second-order filter function."""
         new_dt = np.atleast_1d(self.dt[key])
         if not new_dt.size:
             raise IndexError('Cannot create empty PulseSequence')
@@ -275,6 +274,10 @@ class PulseSequence:
             cum = self._intermediates.get('control_matrix_step_cumulative')
             if cum is not None and key.stop - 1 < len(cum):
                 new.cache_control_matrix(self.omega, cum[key.stop - 1])
+            ff2 = self._intermediates.get('filter_function_2_step_cumulative')
+            if ff2 is not None and key.stop - 1 < len(ff2):
+                new.cache_filter_function(self.omega, None,
+                                          ff2[key.stop - 1], order=2)
         return new
 
     def __copy__(self) -> 'PulseSequence':
@@ -563,20 +566,31 @@ class PulseSequence:
     def get_filter_function(self, omega, which: str = 'fidelity',
                             order: int = 1,
                             show_progressbar: bool = False,
-                            cache_intermediates: bool = False
+                            cache_intermediates: bool = False,
+                            cache_second_order_cumulative: bool = False
                             ) -> torch.Tensor:
-        """The first-order filter function, cached: (n_nops, n_nops, n_w)
-        'fidelity' or (n_nops, n_nops, n_b, n_b, n_w) 'generalized'."""
-        _first_order_only(order)
+        """The filter function, cached.  First order: (n_nops, n_nops,
+        n_w) 'fidelity' or (n_nops, n_nops, n_b, n_b, n_w)
+        'generalized'; second order: F^(2) (n_nops, n_nops, n_b, n_b,
+        n_w), see :func:`.numeric.
+        calculate_second_order_filter_function_from_scratch`."""
         self.omega = omega
-        key = 'filter_function' if which == 'fidelity' \
-            else 'filter_function_gen'
+        if order == 1:
+            key = 'filter_function' if which == 'fidelity' \
+                else 'filter_function_gen'
+        else:
+            key = 'filter_function_2'
         if self.is_cached(key):
             return self._frequency_data[key]
-        control_matrix = self.get_control_matrix(
-            self.omega, show_progressbar, cache_intermediates)
-        self.cache_filter_function(self.omega, control_matrix=control_matrix,
-                                   which=which)
+        control_matrix = None
+        if order == 1:
+            control_matrix = self.get_control_matrix(
+                self.omega, show_progressbar, cache_intermediates)
+        self.cache_filter_function(
+            self.omega, control_matrix=control_matrix, which=which,
+            order=order, show_progressbar=show_progressbar,
+            cache_intermediates=cache_intermediates,
+            cache_second_order_cumulative=cache_second_order_cumulative)
         return self._frequency_data[key]
 
     @util.parse_optional_parameters(which=('fidelity', 'generalized'),
@@ -585,13 +599,18 @@ class PulseSequence:
                               filter_function=None, which: str = 'fidelity',
                               order: int = 1,
                               show_progressbar: bool = False,
-                              cache_intermediates: bool = False) -> None:
-        """Cache the filter function, given or computed from the control
-        matrix; a 4-d control matrix also caches the pulse-correlation
-        filter function."""
-        _first_order_only(order)
+                              cache_intermediates: bool = False,
+                              cache_second_order_cumulative: bool = False
+                              ) -> None:
+        """Cache the filter function, given or computed.  At first order
+        it comes from the control matrix, and a 4-d control matrix also
+        caches the pulse-correlation filter function; at second order
+        from scratch, reusing the cached first-order intermediates,
+        and with ``cache_intermediates`` caching its own (with
+        ``cache_second_order_cumulative`` the F^(2) of every prefix,
+        which slicing reuses)."""
         self.omega = omega
-        if filter_function is None:
+        if filter_function is None and order == 1:
             if control_matrix is None:
                 control_matrix = self.get_control_matrix(
                     self.omega, show_progressbar, cache_intermediates)
@@ -610,9 +629,26 @@ class PulseSequence:
             else:
                 filter_function = numeric.calculate_filter_function(
                     control_matrix, which)
+        elif filter_function is None:
+            self.diagonalize()
+            result = numeric.\
+                calculate_second_order_filter_function_from_scratch(
+                    self.eigvals, self.eigvecs, self.propagators,
+                    self.omega, self.basis, self.n_opers_dev, self.n_coeffs,
+                    self.dt, intermediates=dict(self._intermediates),
+                    show_progressbar=show_progressbar,
+                    cache_intermediates=cache_intermediates,
+                    cache_cumulative=cache_second_order_cumulative)
+            if cache_intermediates:
+                filter_function, intermediates = result
+                self._intermediates.update(intermediates)
+            else:
+                filter_function = result
         filter_function = self._on_device(filter_function)
 
-        if which == 'fidelity':
+        if order == 2:
+            self._frequency_data['filter_function_2'] = filter_function
+        elif which == 'fidelity':
             self._frequency_data['filter_function'] = filter_function
         else:
             self._frequency_data['filter_function'] = \
@@ -658,8 +694,3 @@ class PulseSequence:
         u_curr = (eigvecs * phases[:, None, :]) @ eigvecs.mH
         return u_curr @ self.propagators[idx_t]
 
-
-def _first_order_only(order: int) -> None:
-    if order == 2:
-        raise NotImplementedError('Second-order filter functions are not '
-                                  'ported yet (ROADMAP queue 1, item 4)')

@@ -21,10 +21,10 @@ def test_shared_top_level_names_are_counterparts():
     numeric.infidelity, which takes a PulseSequence, as ff.infidelity
     does (the functional one stays fft.functional.infidelity)."""
     shared = [name for name in ff.__all__ if hasattr(fft, name)]
-    assert {'Basis', 'PulseSequence', 'infidelity',
-            'liouville_representation', 'basis', 'config', 'functional',
-            'numeric', 'pulse_sequence', 'superoperator', 'types',
-            'util'} <= set(shared)
+    assert {'Basis', 'PulseSequence', 'error_transfer_matrix',
+            'infidelity', 'liouville_representation', 'basis', 'config',
+            'functional', 'numeric', 'pulse_sequence', 'superoperator',
+            'types', 'util'} <= set(shared)
     for name in shared:
         want, got = getattr(ff, name), getattr(fft, name)
         if inspect.ismodule(want):
@@ -34,7 +34,38 @@ def test_shared_top_level_names_are_counterparts():
             assert got.__qualname__ == want.__qualname__, name
     assert fft.infidelity is fft.numeric.infidelity
     assert fft.functional.infidelity is not fft.infidelity
+    assert fft.error_transfer_matrix is fft.numeric.error_transfer_matrix
     assert all(hasattr(fft, name) for name in fft.__all__)
+
+
+def test_functional_names_are_counterparts():
+    """Every name of filter_functions_tpu.functional.__all__ is in the
+    port's functional.__all__ (the ETM pair included), and each is
+    defined in the port's functional module."""
+    from filter_functions_tpu import functional as jfunctional
+    assert set(jfunctional.__all__) <= set(fft.functional.__all__)
+    for name in ('error_transfer_matrix', 'batched_error_transfer_matrix'):
+        assert getattr(fft.functional, name).__module__ == \
+            'filter_functions_tpu_torch.functional'
+    for name in ('calculate_decay_amplitudes', 'calculate_frequency_shifts',
+                 'calculate_cumulant_function',
+                 'calculate_second_order_filter_function_from_scratch'):
+        assert callable(getattr(fft.numeric, name)), name
+
+
+def test_top_level_error_transfer_matrix_takes_a_pulse():
+    """fft.error_transfer_matrix(pulse, S, omega) runs as
+    ff.error_transfer_matrix does, first and second order, within 1e-13
+    absolute."""
+    arrays = rand_pulse_arrays(2, 3, local_rng=np.random.default_rng(1))
+    omega = np.geomspace(0.1, 10, 30)
+    for second in (False, True):
+        got = fft.error_transfer_matrix(make_pulse(arrays, cls=fft),
+                                        1e-2 / omega, omega,
+                                        second_order=second)
+        want = np.asarray(ff.error_transfer_matrix(
+            make_pulse(arrays), 1e-2 / omega, omega, second_order=second))
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-13)
 
 
 def test_top_level_infidelity_takes_a_pulse():

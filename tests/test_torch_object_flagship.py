@@ -20,7 +20,8 @@ import torch
 
 import filter_functions_tpu as ff
 import filter_functions_tpu_torch as fft
-from filter_functions_tpu_torch import convert, functional, numeric
+from filter_functions_tpu_torch import (convert, functional, numeric,
+                                        superoperator)
 from filter_functions_tpu_torch.ops import dword
 from test_torch_ozaki import _exact_exp2
 
@@ -177,3 +178,38 @@ def test_object_path_on_card(pulses, cuda_device):
     assert dword.launches == launched
     want = fft.infidelity(port, spectrum, omega)
     assert np.abs(got.cpu().numpy() - want.numpy()).max() <= 1e-10
+
+
+@pytest.mark.gpu
+def test_etm_on_card(cuda_device):
+    """On the card the first-order ETM of the flagship (chip_smoke phase
+    7a at 64 frequencies) launches the kernel through the control
+    matrix; -tr K / d^2 is the infidelity within 1e-12 relative, the
+    ETM is within 1.6e-9 of the one from a native control matrix (d
+    times the 1e-10 infidelity contract), the card's native ETM within
+    1e-12 of the CPU's, and the ETM is completely positive."""
+    omega = torch.tensor(np.geomspace(1e-2, 1e2, N_OMEGA_SMALL),
+                         device=cuda_device)
+    spectrum = 1e-4 / omega
+    pulse = fft.qft_pulse_sequence(4, device=cuda_device)
+    before = dword.launches
+    etm = fft.error_transfer_matrix(pulse, spectrum, omega)
+    assert dword.launches > before
+    assert etm.shape == (256, 256) and etm.dtype == torch.float64
+    assert torch.isfinite(etm).all()
+    cumulant = numeric.calculate_cumulant_function(pulse, spectrum, omega)
+    infid = fft.infidelity(pulse, spectrum, omega).sum().item()
+    from_trace = -torch.einsum('aii->', cumulant).item() / pulse.d**2
+    assert abs(from_trace - infid) <= 1e-12 * infid
+    native = fft.qft_pulse_sequence(4, device=cuda_device)
+    native.cache_control_matrix(
+        omega, numeric.calculate_control_matrix_from_scratch(
+            native.eigvals, native.eigvecs, native.propagators, omega,
+            native.basis, native.n_opers_dev, native.n_coeffs, native.dt,
+            t=native.t, contract='native'))
+    etm_native = fft.error_transfer_matrix(native, spectrum, omega)
+    assert (etm - etm_native).abs().max().item() <= 1.6e-9
+    cpu = fft.error_transfer_matrix(fft.qft_pulse_sequence(4),
+                                    spectrum.cpu(), omega.cpu())
+    assert (etm_native.cpu() - cpu).abs().max().item() <= 1e-12
+    assert superoperator.liouville_is_CP(etm, pulse.basis)

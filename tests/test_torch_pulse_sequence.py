@@ -155,8 +155,9 @@ def test_from_arrays_validation(field):
 
 def test_attributes_and_unsupported_operations():
     """len, d, t, tau, duration and the string forms; numpy keeps a
-    pulse whole; concatenation, second order and the derivative are not
-    ported and say so."""
+    pulse whole; the second-order filter function matches JAX's within
+    1e-12 max|F2|; concatenation and the derivative are not ported and
+    say so."""
     jp, p = _pair(2, 5, 3)
     assert len(p) == 5 and p.d == 2
     np.testing.assert_array_equal(p.t, jp.t)
@@ -168,8 +169,8 @@ def test_attributes_and_unsupported_operations():
         p @ p
     with pytest.raises(NotImplementedError):
         p @= p
-    with pytest.raises(NotImplementedError, match='item 4'):
-        p.get_filter_function(_omega(5), order=2)
+    _close(p.get_filter_function(_omega(5), order=2),
+           jp.get_filter_function(_omega(5), order=2))
     with pytest.raises(NotImplementedError, match='item 5'):
         p.get_filter_function_derivative(_omega(5))
     with pytest.raises(ValueError, match='Invalid value for order'):
@@ -422,9 +423,10 @@ def test_budget_chunking_equals_unchunked(chunk):
     args = (p.eigvals, p.eigvecs, p.propagators, omega, p.basis,
             p.n_opers_dev, p.n_coeffs, p.dt)
     whole = numeric.calculate_control_matrix_from_scratch(*args)
-    assert numeric._pick_chunk(n_dt, n_omega, d, 1 << 30) == n_dt
-    budget = chunk * n_omega * d * d * 16
-    assert numeric._pick_chunk(n_dt, n_omega, d, budget) == chunk
+    per_segment = n_omega * d * d * 16
+    assert numeric._pick_chunk(n_dt, per_segment, 1 << 30) == n_dt
+    budget = chunk * per_segment
+    assert numeric._pick_chunk(n_dt, per_segment, budget) == chunk
     chunked = numeric.calculate_control_matrix_from_scratch(
         *args, budget_bytes=budget)
     _close(chunked, whole, 1e-13)

@@ -1,0 +1,321 @@
+"""The PyTorch port's second-order machinery against the JAX package's,
+on the same numpy inputs: the K2 integral lattice (regular grids, and
+grazing resonances against a 50-digit closed form), the
+divided-difference coefficients, the second-order filter function from
+scratch (batched total, per-segment caching, cumulative prefixes), the
+frequency shifts of diagonal spectra without F^(2), and the object
+API's ``order=2`` caching and prefix slicing.
+
+Both sides run the native complex128 route on the CPU; they differ only
+by the order of the sums, and near resonances by the port's
+divided-difference branch, which the JAX f64 lattice lacks.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import filter_functions_tpu_torch as fft
+from filter_functions_tpu import numeric as jnumeric
+from filter_functions_tpu_torch import numeric
+from testutil import make_pulse, rand_pulse_arrays
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.numpy()
+    return x.to_numpy() if hasattr(x, 'to_numpy') else np.asarray(x)
+
+
+def _t(x):
+    return torch.as_tensor(np.asarray(x), dtype=torch.float64)
+
+
+def _close(got, want, rel=1e-12):
+    """|got - want| <= rel * max|want| elementwise."""
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=rel * np.abs(want).max())
+
+
+def _pair(d, n_dt, seed, n_nops=3):
+    arrays = rand_pulse_arrays(d, n_dt, n_nops=n_nops,
+                               local_rng=np.random.default_rng(seed))
+    return make_pulse(arrays), make_pulse(arrays, cls=fft)
+
+
+def _grids():
+    """The regular grids of tests/test_precision.py::
+    TestDoubleSingleK2Lattice: d in {2, 4, 8}, two scales, 40 log-spaced
+    frequencies plus an exact y == 0 hit and an exact x == 0 column."""
+    local = np.random.default_rng(7)
+    cases = []
+    for trial in range(6):
+        d = [2, 4, 8][trial % 3]
+        scale = [1.0, 1e3][trial % 2]
+        ev = np.sort(local.normal(scale=scale, size=d))
+        dE = (ev[:, None] - ev[None, :]).ravel()
+        dt = abs(local.normal(scale=1 / scale)) + 0.1 / scale
+        omega = np.concatenate([
+            np.geomspace(1e-3 * scale, 1e3 * scale, 40),
+            [-dE[dE != 0][0]], [0.0]])
+        cases.append((omega, ev, dt))
+    return cases
+
+
+def _lattices(omega, ev, dt):
+    """(port lattice, JAX lattice, series-branch mask), numpy."""
+    want = _np(jnumeric._second_order_integral_single(
+        jnp.asarray(omega), jnp.asarray(ev), jnp.asarray(dt)))
+    got = numeric._second_order_integral_single(_t(omega), _t(ev), _t(dt))
+    assert got.dtype == torch.complex128
+    dE = (ev[:, None] - ev[None, :]).ravel()
+    y = omega[:, None] + dE[None]                         # (o, mn)
+    series = (y != 0) & (np.abs(y * dt) < numeric._SO_SMALL_Y)
+    d = len(ev)
+    mask = np.broadcast_to(series[:, None, :], (len(omega), d * d, d * d))
+    return got.numpy(), want, mask.reshape(got.shape)
+
+
+def _adjudicate(got, want, omega, ev, dt, mpmath, count=8):
+    """Worst error of *got* and *want* against the 50-digit closed form
+    (frac(x) - frac(z))/y over the *count* entries where they differ
+    most, relative to max|I|."""
+    d = len(ev)
+    dE = (ev[:, None] - ev[None, :]).ravel()
+
+    def frac(u):
+        if u == 0:
+            return mpmath.mpc(0, dt)
+        return mpmath.expm1(mpmath.mpc(0, 1) * u * dt) / u
+
+    scale = np.abs(want).max()
+    worst_got, worst_want = 0.0, 0.0
+    diff = np.abs(got - want)
+    for flat in np.argsort(diff.ravel())[::-1][:count]:
+        o, i, j, m, n = np.unravel_index(flat, got.shape)
+        x = mpmath.mpf(dE[i * d + j]) - mpmath.mpf(omega[o])
+        y = mpmath.mpf(omega[o]) + mpmath.mpf(dE[m * d + n])
+        z = mpmath.mpf(dE[i * d + j]) + mpmath.mpf(dE[m * d + n])
+        assert y != 0
+        exact = complex((frac(x) - frac(z)) / y)
+        worst_got = max(worst_got, abs(got[o, i, j, m, n] - exact) / scale)
+        worst_want = max(worst_want,
+                         abs(want[o, i, j, m, n] - exact) / scale)
+    return worst_got, worst_want
+
+
+@pytest.mark.parametrize('case', range(6))
+def test_lattice_matches_jax_on_regular_grids(case):
+    """K2 against the JAX f64 lattice within 1e-12 max|I| wherever both
+    evaluate the same closed form; on the entries of the port's series
+    branch (0 < |y dt| < 1e-2) the JAX lattice's cancelling general
+    form is off by up to 5.4e-12 max|I| (measured against the
+    50-digit closed form, next test), and the two agree within 1e-10."""
+    omega, ev, dt = _grids()[case]
+    got, want, series = _lattices(omega, ev, dt)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got[~series], want[~series], rtol=0,
+                               atol=1e-12 * scale)
+    np.testing.assert_allclose(got[series], want[series], rtol=0,
+                               atol=1e-10 * scale)
+
+
+@pytest.mark.parametrize('case', range(6))
+def test_lattice_series_branch_on_regular_grids(case):
+    """Where the port and the JAX lattice differ most on the grids
+    above, the port is within 1e-14 max|I| of the 50-digit closed form
+    (measured <= 4.4e-16)."""
+    mpmath = pytest.importorskip('mpmath')
+    omega, ev, dt = _grids()[case]
+    got, want, _ = _lattices(omega, ev, dt)
+    with mpmath.workdps(50):
+        worst, _ = _adjudicate(got, want, omega, ev, dt, mpmath)
+    assert worst < 1e-14, worst
+
+
+def test_lattice_at_grazing_resonance():
+    """At |y dt| ~ 1e-10 the port's lattice is within 1e-8 of the
+    50-digit closed form (relative to max|I|; measured ~1e-16), where
+    the JAX f64 lattice's cancelling general form is more than 100x
+    further off (its own test measured 2.7e-4)."""
+    mpmath = pytest.importorskip('mpmath')
+    local = np.random.default_rng(3)
+    d = 4
+    ev = np.sort(local.normal(size=d))
+    dE = (ev[:, None] - ev[None, :]).ravel()
+    dt = 0.7
+    nz = dE[dE != 0]
+    omega = -nz + local.normal(scale=1e-10 / dt, size=nz.size)
+    got, want, _ = _lattices(omega, ev, dt)
+    with mpmath.workdps(50):
+        worst, worst_jax = _adjudicate(got, want, omega, ev, dt, mpmath)
+    assert worst < 1e-8, worst
+    assert worst_jax > 100 * worst, (worst_jax, worst)
+
+
+def test_divided_difference_coefficients_match_jax():
+    """D_k(u) of both series and closed-form branches against the JAX
+    package's within 1e-12 of their largest value (k = 0..5), at
+    |u dt| <= 0.15 (series) and |u dt| >= 1.55 (closed form).  Between
+    those the closed form of both packages carries a rounding error
+    ~eps (k+1)!/|u dt|^{k+1}, which (y dt)^k suppresses where the
+    lattice uses it."""
+    a = np.concatenate([np.linspace(-0.1, 0.1, 11), np.linspace(1.6, 4, 15),
+                        -np.linspace(1.6, 4, 15)])
+    b = np.array([-0.05, 0.0, 0.05])
+    dt = 0.9
+    w = a[:, None] + b[None]
+    want = _np(jnumeric._frac_divdiff_coeffs(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(dt), 6,
+        jnp.sin(jnp.asarray(w)), jnp.cos(jnp.asarray(w))))
+    got = numeric._frac_divdiff_coeffs(_t(a), _t(b), _t(dt), 6,
+                                       _t(np.sin(w)), _t(np.cos(w)))
+    assert got.shape == (6, 41, 3)
+    for k in range(6):
+        _close(got[k], want[k])
+
+
+def test_lattice_takes_leading_segment_axes():
+    """A batch of segments gives the per-segment lattices within
+    1e-15 max|I| (only einsum blocking differs)."""
+    ev = _t(np.sort(np.random.default_rng(1).normal(size=(3, 3)), -1))
+    dt = _t([0.3, 0.7, 1.2])
+    omega = _t(np.geomspace(0.05, 20, 9))
+    batched = numeric._second_order_integral_single(omega, ev, dt)
+    assert batched.shape == (3, 9, 3, 3, 3, 3)
+    for g in range(3):
+        single = numeric._second_order_integral_single(omega, ev[g], dt[g])
+        _close(batched[g], single, 1e-15)
+
+
+def test_trapezoid_weights_match_jax():
+    omega = np.geomspace(0.1, 10, 17)
+    got = numeric.trapezoid_weights(_t(omega))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jnumeric.trapezoid_weights(omega)),
+        rtol=1e-15)
+    f = np.cos(omega)
+    np.testing.assert_allclose((got * _t(f)).sum().item(),
+                               np.trapezoid(f, omega), rtol=1e-14)
+
+
+def _from_scratch(pulse, omega, module, **kw):
+    pulse.diagonalize()
+    return module.calculate_second_order_filter_function_from_scratch(
+        pulse.eigvals, pulse.eigvecs, pulse.propagators, omega, pulse.basis,
+        pulse.n_opers_dev, pulse.n_coeffs, pulse.dt, **kw)
+
+
+@pytest.mark.parametrize('d,n_dt,n_omega', [(2, 4, 20), (3, 5, 32),
+                                            (4, 3, 16)])
+def test_second_order_filter_function_matches_jax(d, n_dt, n_omega):
+    """K10 total (batched matmuls), with per-segment caching, and the
+    cumulative prefixes: within 1e-12 max|F2| of the JAX package, and
+    the lattices and complete steps it caches likewise."""
+    jp, p = _pair(d, n_dt, 10 + d)
+    omega = np.geomspace(0.1, 20, n_omega)
+    want, jint = _from_scratch(jp, omega, jnumeric,
+                               cache_intermediates=True,
+                               cache_cumulative=True)
+    got = _from_scratch(p, omega, numeric)
+    assert got.shape == (3, 3, d * d, d * d, n_omega)
+    assert got.dtype == torch.complex128
+    _close(got, want)
+    cached, tint = _from_scratch(p, omega, numeric, cache_intermediates=True,
+                                 cache_cumulative=True)
+    _close(cached, want)
+    for key in ('second_order_integral', 'second_order_complete_steps',
+                'filter_function_2_step_cumulative', 'control_matrix_step'):
+        _close(tint[key], jint[key])
+    # the last prefix is the whole pulse
+    _close(tint['filter_function_2_step_cumulative'][-1], want)
+
+
+def test_second_order_chunking_and_intermediates():
+    """A memory budget of one segment per chunk, and step terms taken
+    from the first-order cache, leave F2 within 1e-13 max|F2|."""
+    _, p = _pair(3, 5, 21)
+    omega = np.geomspace(0.1, 20, 24)
+    whole = _from_scratch(p, omega, numeric)
+    chunked = _from_scratch(p, omega, numeric, budget_bytes=1)
+    _close(chunked, whole, 1e-13)
+    p.get_control_matrix(omega, cache_intermediates=True)
+    reused = _from_scratch(p, omega, numeric,
+                           intermediates=dict(p.intermediates))
+    _close(reused, whole, 1e-13)
+
+
+@pytest.mark.parametrize('kind', ['shared', 'per_operator'])
+def test_diag_shifts_match_integrated_f2(kind):
+    """The frequency shifts of a diagonal spectrum without F2 (the
+    functional path's route) against the integral of the full F2's
+    a == b diagonal, within 1e-12 max|Delta|; with a memory budget of
+    one segment per chunk equal to the single chunk within 1e-13; also
+    batched over two pulses, each equal to its single evaluation."""
+    _, p = _pair(3, 4, 31)
+    omega = _t(np.geomspace(0.1, 20, 30))
+    s = 1e-3 / omega
+    if kind == 'per_operator':
+        s = torch.outer(_t([1.0, 0.5, 2.0]), s)
+    p.diagonalize()
+    n_t, b_t, step, cumul = numeric._second_order_step_terms(
+        p.eigvals, p.eigvecs, p.propagators, omega, p.basis.tensor('cpu'),
+        p.n_opers_dev, _t(p.n_coeffs), _t(p.dt), _t(p.t))
+    padded = numeric._pad_cumulative(step, cumul)
+    weights = numeric._spectral_weights(s, omega, 3)
+    got = numeric._second_order_diag_shifts(p.eigvals, n_t, b_t, step,
+                                            padded, omega, _t(p.dt), weights)
+    f2 = numeric._second_order_total(p.eigvals, n_t, b_t, step, padded,
+                                     omega, _t(p.dt))
+    want = numeric._integrate_2pi(numeric._get_integrand(
+        s, omega, np.arange(3), 'total', 'generalized', filter_function=f2),
+        omega)
+    _close(got.real, want)
+    assert numeric._lattice_chunk(p.eigvals, 30, 0) == len(p.eigvals)
+    assert numeric._lattice_chunk(p.eigvals, 30, 0, budget_bytes=1) == 1
+    chunked = numeric._second_order_diag_shifts(
+        p.eigvals, n_t, b_t, step, padded, omega, _t(p.dt), weights,
+        budget_bytes=1)
+    _close(chunked, got, 1e-13)
+
+    def two(x):
+        return torch.stack([x, x.flip(0) if x.ndim else x])
+    stacked = numeric._second_order_diag_shifts(
+        two(p.eigvals), two(n_t), two(b_t), two(step), two(padded), omega,
+        two(_t(p.dt)), weights)
+    torch.testing.assert_close(stacked[0], got, rtol=0,
+                               atol=1e-15 * got.abs().max().item())
+
+
+def test_object_order_two_matches_jax():
+    """get_filter_function(order=2) caches F2 (within 1e-12 of JAX's),
+    a second call computes nothing, and omega changes invalidate it."""
+    jp, p = _pair(2, 5, 41)
+    omega = np.geomspace(0.1, 20, 25)
+    want = jp.get_filter_function(omega, order=2)
+    got = p.get_filter_function(omega, order=2)
+    _close(got, want)
+    assert p.is_cached('second order filter function')
+    assert p.get_filter_function(omega, order=2) is got
+    p.get_filter_function(omega[:-1], order=2)
+    assert p.get_filter_function(omega[:-1], order=2).shape[-1] == 24
+
+
+def test_prefix_slice_reuses_second_order_cumulative():
+    """pulse[:i] inherits F2 from filter_function_2_step_cumulative, and
+    it equals F2 from scratch within 1e-13 max|F2| (as
+    tests/test_sequencing.py pins for the JAX package)."""
+    _, p = _pair(3, 5, 51)
+    omega = np.geomspace(0.1, 20, 11)
+    p.cache_control_matrix(omega, cache_intermediates=True)
+    p.cache_filter_function(omega, order=2, cache_intermediates=True,
+                            cache_second_order_cumulative=True)
+    assert p.is_cached('second_order_integral')
+    for i in range(1, len(p)):
+        sliced = p[:i]
+        assert sliced.is_cached('filter_function_2')
+        f2 = sliced.get_filter_function(omega, order=2)
+        sliced.cleanup('all')
+        _close(f2, sliced.get_filter_function(omega, order=2), 1e-13)
