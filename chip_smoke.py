@@ -9,9 +9,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 2. build: compiles the CUDA kernel from ``csrc/`` and prints nvcc's
    register / shared-memory / spill report.
 3. kernel: ``dword_digits`` on the card against its plain PyTorch
-   version on the card, bit-exact, at K, J, C, n_d = 512, 3, 128, 4 and
-   at the flagship's 3328, 18, 256, 5 (batch 2, as the main path calls
-   it); times both.
+   version on the card, bit-exact, at the four shapes of
+   ``KERNEL_SHAPES``: K, J, C, n_d = 512, 3, 128, 4; the flagship's 3328,
+   18, 256, 5 (batch 2, as the main path calls it); a ragged K = 333
+   (byte stores); K = 20000, above the kernel's register cap.  Times the
+   flagship call of both beside its memory bound and the card's name and
+   power limit.
 4. main path: ``functional.batched_infidelity`` on the 4-qubit QFT pulse
    at 1000 frequencies, batch 32 in chunks of 2 (bench.py's flagship
    inputs), through the default CUDA route (the factored Ozaki route).
@@ -75,7 +78,13 @@ CHUNK = 2
 N_TIMED = 5
 #: dword_digits shapes: (K, J, C, n_d, slice_bits, batch).
 KERNEL_SHAPES = {'small': (512, 3, 128, 4, 7, 1),
-                 'flagship': (3328, 18, 256, 5, 7, CHUNK)}
+                 'flagship': (3328, 18, 256, 5, 7, CHUNK),
+                 'ragged': (333, 2, 9, 5, 7, 3),
+                 'above_cap': (20000, 2, 16, 5, 7, 1)}
+#: The H100 SXM's device-memory rate (NVIDIA's data sheet), bytes/s.
+#: There is no published int32 rate, so a kernel's bound here is its
+#: memory floor.
+HBM_BYTES_PER_S = 3.35e12
 #: BASELINE.json's infidelity parity contract, held by the Ozaki route
 #: against the native one.
 PARITY = 1e-10
@@ -122,9 +131,17 @@ def _cuda_ms(fn, runs: int) -> float:
     return start.elapsed_time(stop) / runs
 
 
+def dword_bound_ms(K, J, C, n_d, batch) -> float:
+    """Memory floor of one dword_digits call: the int32 factors read
+    once, the int8 digits and int32 shifts written once."""
+    reads = batch * K * 2 * (J + C) * 4
+    writes = batch * 3 * J * C * (n_d * K + 4)
+    return (reads + writes) / HBM_BYTES_PER_S * 1e3
+
+
 def check_kernel(device, card):
     """Phase 3: kernel against plain version, bit-exact; returns the
-    flagship shape's (max_abs_err, kernel ms, plain ms)."""
+    flagship shape's (max_abs_err, kernel ms, plain ms, bound ms)."""
     result = None
     for name, (K, J, C, n_d, sb, batch) in KERNEL_SHAPES.items():
         rng = np.random.default_rng(7)
@@ -146,10 +163,12 @@ def check_kernel(device, card):
             ms = _cuda_ms(lambda: dword.dword_digits(*factors, n_d, sb), 20)
             plain_ms = _cuda_ms(lambda: dword.dword_digits_reference(
                 *factors, n_d, sb), 5)
+            bound_ms = dword_bound_ms(K, J, C, n_d, batch)
             print(f'kernel flagship: dword_digits {ms:.4f} ms, plain '
-                  f'version {plain_ms:.4f} ms per call of {batch} pulses '
-                  f'[{card}]')
-            result = (err, ms, plain_ms)
+                  f'version {plain_ms:.4f} ms per call of {batch} pulses; '
+                  f'memory bound {bound_ms:.4f} ms, '
+                  f'{100 * bound_ms / ms:.1f} % of it [{card}]')
+            result = (err, ms, plain_ms, bound_ms)
     return result
 
 
@@ -189,7 +208,7 @@ def main() -> int:
     print(report.strip())
 
     # 3. kernel against plain version
-    kernel_err, kernel_ms, plain_ms = check_kernel(device, card)
+    kernel_err, kernel_ms, plain_ms, bound_ms = check_kernel(device, card)
 
     # 4. main path
     batched, omega, spectrum = flagship_inputs(device)
@@ -272,8 +291,11 @@ def main() -> int:
             'functional.batched_infidelity': launches,
             'numeric.infidelity (PulseSequence)': object_launches,
             'numeric.error_transfer_matrix (PulseSequence)': etm_launches},
-        'max_abs_err': kernel_err, 'ms': kernel_ms,
-        'plain_ms': plain_ms}]}))
+        'max_abs_err': kernel_err, 'ms': kernel_ms, 'plain_ms': plain_ms,
+        'bound_ms': bound_ms, 'bound_by': 'bytes', 'bound': 'memory',
+        'pct_of_bound': 100 * bound_ms / kernel_ms, 'library_ms': None,
+        'library_note': 'no single PyTorch call computes the digit '
+                        'slices'}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
@@ -380,8 +402,8 @@ def etm_flagship(device, card, infid) -> int:
             t=native.t, contract='native'))
     etm_native = fft.error_transfer_matrix(native, spectrum, omega)
     to_native = (etm - etm_native).abs().max().item()
-    cpu = fft.error_transfer_matrix(qft.qft_pulse_sequence(4), spectrum.cpu(),
-                                    omega.cpu())
+    cpu = fft.error_transfer_matrix(qft.qft_pulse_sequence(4, device='cpu'),
+                                    spectrum.cpu(), omega.cpu())
     to_cpu = (etm_native.cpu() - cpu).abs().max().item()
     is_cp = superoperator.liouville_is_CP(etm, pulse.basis)
     print(f'etm flagship: Ozaki against native max |diff| {to_native:.6e} '

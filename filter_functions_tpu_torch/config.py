@@ -8,7 +8,7 @@ default dtype.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -29,7 +29,24 @@ DEEP_PRECISION_BITS = 24
 #: (JAX: ``FF_TPU_OZAKI_ESCALATE_TOL``; 0 disables escalation).
 ESCALATION_TOL = 0.1
 
+#: Where the entry points that build a pulse (``PulseSequence``,
+#: ``PulseSequence.from_arrays``, ``models.qft`` and ``convert``'s
+#: conversions) put their tensors unless the caller passes ``device=``.
+DEFAULT_DEVICE = 'cuda'
+
 _CONTRACT_MODES = ('native', 'ozaki')
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """*device* as a ``torch.device``.  A CUDA device where no CUDA card
+    is available raises: the entry points never fall back to the CPU."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested (the default is "
+            f"{DEFAULT_DEVICE!r}), but no CUDA card is available: pass "
+            f"device='cpu' to run on the CPU")
+    return device
 
 
 def contraction_mode(device: torch.device,

@@ -20,7 +20,7 @@ attributes, or from mappings of those arrays.  Nothing here imports JAX.
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Any, Union
+from typing import Any
 
 import numpy as np
 import torch
@@ -29,6 +29,7 @@ from . import config
 from .basis import Basis
 from .functional import PulseArrays
 from .pulse_sequence import PulseSequence
+from .types import Device
 
 #: The host arrays that define a pulse, in ``from_arrays`` order.
 PULSE_FIELDS = ('c_opers', 'c_oper_identifiers', 'c_coeffs', 'n_opers',
@@ -56,11 +57,12 @@ def _complex(value: Any) -> np.ndarray:
 
 
 def pulse_arrays_from_numpy(source: Any,
-                            device: Union[str, torch.device] = 'cpu'
+                            device: Device = config.DEFAULT_DEVICE
                             ) -> PulseArrays:
     """:class:`~.functional.PulseArrays` on *device* from the JAX
     package's parameters given as numpy arrays (see the module
     docstring for the accepted layouts)."""
+    device = config.resolve_device(device)
     leaves = {}
     for name in PulseArrays._fields:
         value = _field(source, name)
@@ -84,7 +86,7 @@ def basis_from_numpy(source: Any) -> Basis:
 
 
 def pulse_sequence_from_numpy(source: Any,
-                              device: Union[str, torch.device] = 'cpu'
+                              device: Device = config.DEFAULT_DEVICE
                               ) -> PulseSequence:
     """The port's :class:`~.pulse_sequence.PulseSequence` on *device*
     from a JAX ``PulseSequence`` (its host attributes) or from a

@@ -10,14 +10,14 @@ numpy, so this module needs no JAX.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Union
 
 import numpy as np
-import torch
 
+from .. import config
 from ..convert import pulse_arrays_from_numpy
 from ..functional import PulseArrays
 from ..pulse_sequence import PulseSequence
+from ..types import Device
 
 _ARRAYS_DIR = (Path(__file__).resolve().parents[2] / 'filter_functions_tpu'
                / 'models')
@@ -33,15 +33,14 @@ def _load(n_qubits: int) -> dict:
 
 
 def qft_pulse_arrays(n_qubits: int = 4,
-                     device: Union[str, torch.device] = 'cpu'
-                     ) -> PulseArrays:
+                     device: Device = config.DEFAULT_DEVICE) -> PulseArrays:
     """:class:`~..functional.PulseArrays` of the n-qubit QFT pulse on
     *device*.  Only the precomputed 4-qubit instance exists."""
     return pulse_arrays_from_numpy(_load(n_qubits), device=device)
 
 
 def qft_pulse_sequence(n_qubits: int = 4,
-                       device: Union[str, torch.device] = 'cpu'
+                       device: Device = config.DEFAULT_DEVICE
                        ) -> PulseSequence:
     """The n-qubit QFT pulse as a :class:`~..pulse_sequence.
     PulseSequence` on *device*, built with ``from_arrays`` from the

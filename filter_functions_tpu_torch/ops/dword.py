@@ -125,7 +125,12 @@ def dword_digits(zbr: torch.Tensor, zbi: torch.Tensor,
     takes -- and shifts (B, 3, J*C) int32.
 
     CPU tensors take :func:`dword_digits_reference`; CUDA tensors
-    launch the kernel of ``csrc/dword_digits.cu``.
+    launch the kernel of ``csrc/dword_digits.cu``.  The kernel forms
+    each word as one 64-bit product, which equals the plain version's
+    12-bit split arithmetic for factors in [-2^23, 2^23]; ``ops.ozaki.
+    _fix`` makes factors in that range, and outside it the kernel's
+    digits differ.  Up to K = 16384 the kernel keeps the words in
+    registers; above that it computes them twice.  Every K is taken.
     """
     global launches
     _check(zbr, zbi, zcr, zci, n_d, slice_bits)

@@ -102,12 +102,14 @@ class PulseSequence:
     H_c, H_n : nested lists ``[[oper, coeffs, identifier?], ...]``
     dt : segment durations, shape (n_dt,)
     basis : operator basis; defaults to the GGM basis of dimension d.
-    device : where every computed quantity lives.
+    device : where every computed quantity lives; ``'cuda'``
+        (:data:`~.config.DEFAULT_DEVICE`) unless given.  Pass
+        ``device='cpu'`` to run on the CPU.
     """
 
     def __init__(self, H_c: Hamiltonian, H_n: Hamiltonian,
                  dt: Coefficients, basis: Optional[Basis] = None,
-                 device: Device = 'cpu'):
+                 device: Device = config.DEFAULT_DEVICE):
         if not util.is_sequence_like(dt):
             raise TypeError('Expected a sequence of time steps, not '
                             f'{type(dt)}')
@@ -139,7 +141,7 @@ class PulseSequence:
                                  f'({self.d}, {self.d}), not '
                                  f'{basis.shape[1:]}!')
             self.basis = basis
-        self.device = torch.device(device)
+        self.device = config.resolve_device(device)
         self._init_caches()
 
     def _init_caches(self):
@@ -152,7 +154,7 @@ class PulseSequence:
     def from_arrays(cls, c_opers, c_oper_identifiers, c_coeffs,
                     n_opers, n_oper_identifiers, n_coeffs, dt,
                     basis: Optional[Basis] = None,
-                    device: Device = 'cpu') -> 'PulseSequence':
+                    device: Device = config.DEFAULT_DEVICE) -> 'PulseSequence':
         """Construct directly from arrays, taken as they are (no
         sorting)."""
         new = cls.__new__(cls)
@@ -165,7 +167,7 @@ class PulseSequence:
         new.dt = util._host(dt).astype(float)
         new.d = new.c_opers.shape[-1]
         new.basis = basis if basis is not None else Basis.ggm(new.d)
-        new.device = torch.device(device)
+        new.device = config.resolve_device(device)
         if not (len(new.c_opers) == len(new.c_oper_identifiers)
                 == len(new.c_coeffs)):
             raise ValueError('Control Hamiltonian not same length!')

@@ -4,10 +4,15 @@ both, so code written for one runs on the other."""
 import inspect
 
 import numpy as np
+import pytest
+import torch
 
 import filter_functions_tpu as ff
 import filter_functions_tpu_torch as fft
+from filter_functions_tpu_torch import config, convert
+from filter_functions_tpu_torch.models import qft
 from testutil import make_pulse, rand_pulse_arrays
+from torch_testutil import fft_cpu
 
 
 def _port_name(name: str) -> str:
@@ -60,7 +65,7 @@ def test_top_level_error_transfer_matrix_takes_a_pulse():
     arrays = rand_pulse_arrays(2, 3, local_rng=np.random.default_rng(1))
     omega = np.geomspace(0.1, 10, 30)
     for second in (False, True):
-        got = fft.error_transfer_matrix(make_pulse(arrays, cls=fft),
+        got = fft.error_transfer_matrix(make_pulse(arrays, cls=fft_cpu),
                                         1e-2 / omega, omega,
                                         second_order=second)
         want = np.asarray(ff.error_transfer_matrix(
@@ -73,6 +78,52 @@ def test_top_level_infidelity_takes_a_pulse():
     agrees with it within 1e-13 absolute (measured 4.9e-19)."""
     arrays = rand_pulse_arrays(2, 3, local_rng=np.random.default_rng(0))
     omega = np.geomspace(0.1, 10, 50)
-    got = fft.infidelity(make_pulse(arrays, cls=fft), 1e-2 / omega, omega)
+    got = fft.infidelity(make_pulse(arrays, cls=fft_cpu), 1e-2 / omega, omega)
     want = np.asarray(ff.infidelity(make_pulse(arrays), 1e-2 / omega, omega))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-13)
+
+
+#: The entry points that build a pulse, and with it its device.
+ENTRY_POINTS = (fft.PulseSequence.__init__, fft.PulseSequence.from_arrays,
+                qft.qft_pulse_arrays, qft.qft_pulse_sequence,
+                convert.pulse_arrays_from_numpy,
+                convert.pulse_sequence_from_numpy)
+
+
+def test_entry_points_default_to_the_card():
+    """Each of the six entry points that build a pulse defaults to
+    config.DEFAULT_DEVICE, which is 'cuda'."""
+    assert config.DEFAULT_DEVICE == 'cuda'
+    for fn in ENTRY_POINTS:
+        default = inspect.signature(fn).parameters['device'].default
+        assert default == config.DEFAULT_DEVICE, fn.__qualname__
+
+
+def test_default_device_without_a_card_raises():
+    """Without a CUDA card, each entry point called with its default
+    device raises an error that names the device and tells the caller to
+    pass device='cpu': it never returns CPU tensors."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present: the default runs on it')
+    X, Z = fft.util.paulis[1], fft.util.paulis[3]
+    arrays = dict(zip(convert.PULSE_FIELDS, rand_pulse_arrays(
+        2, 3, local_rng=np.random.default_rng(5))))
+    with np.load(qft._ARRAYS_DIR / 'qft4_arrays.npz') as z:
+        npz = dict(z)
+    calls = {
+        'qft_pulse_arrays': lambda: fft.qft_pulse_arrays(4),
+        'PulseSequence': lambda: fft.PulseSequence(
+            [[X, [1.0], 'X']], [[Z, [1.0], 'Z']], [1.0]),
+        'from_arrays': lambda: fft.PulseSequence.from_arrays(**arrays),
+        'qft_pulse_sequence': lambda: fft.qft_pulse_sequence(4),
+        'pulse_arrays_from_numpy': lambda: convert.pulse_arrays_from_numpy(
+            npz),
+        'pulse_sequence_from_numpy':
+            lambda: convert.pulse_sequence_from_numpy(
+                {**arrays, 'basis': fft.Basis.ggm(2).np}),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError) as err:
+            call()
+        assert "'cuda'" in str(err.value), name
+        assert "device='cpu'" in str(err.value), name

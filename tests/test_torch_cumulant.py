@@ -18,6 +18,7 @@ import filter_functions_tpu_torch as fft
 from filter_functions_tpu import numeric as jnumeric
 from filter_functions_tpu_torch import numeric
 from testutil import make_pulse, rand_pulse_arrays
+from torch_testutil import fft_cpu
 
 
 def _np(x):
@@ -36,7 +37,7 @@ def _close(got, want, rel=1e-12):
 def _pair(d, n_dt, seed, n_nops=2, btype='GGM'):
     arrays = rand_pulse_arrays(d, n_dt, n_nops=n_nops,
                                local_rng=np.random.default_rng(seed))
-    return make_pulse(arrays, btype), make_pulse(arrays, btype, cls=fft)
+    return make_pulse(arrays, btype), make_pulse(arrays, btype, cls=fft_cpu)
 
 
 def _spectrum(kind, omega):
@@ -213,7 +214,8 @@ def test_cumulant_from_precomputed_matches_jax(name, arg, n_nops):
         rand_pulse_arrays(d, 1, 1, n_nops,
                           local_rng=np.random.default_rng(n))
     arrays = (c_opers, c_ids, c_coeffs, n_opers, n_ids, n_coeffs, dt)
-    p = fft.PulseSequence.from_arrays(*arrays, basis=basis)
+    p = fft.PulseSequence.from_arrays(*arrays, basis=basis,
+                                      device='cpu')
     jp = ff.PulseSequence.from_arrays(*arrays, basis=jbasis)
     rng = np.random.default_rng(n + 1)
     a = rng.normal(size=(n_nops, n, n))
@@ -268,7 +270,7 @@ def test_precomputed_amplitudes_shifts_and_errors():
     1e-15, and the same bad arguments raise."""
     p = make_pulse(rand_pulse_arrays(2, 2, 1, 1,
                                      local_rng=np.random.default_rng(90)),
-                   cls=fft)
+                   cls=fft_cpu)
     omega = np.linspace(0.5, 5, 43)
     spectrum = 1e-2 / omega
     gamma = numeric.calculate_decay_amplitudes(p, spectrum, omega)
@@ -307,7 +309,7 @@ def test_second_order_contribution_antisymmetric(d):
     with the first-order intermediates cached as there."""
     p = make_pulse(rand_pulse_arrays(d, 3, 2, 2,
                                      local_rng=np.random.default_rng(d)),
-                   cls=fft)
+                   cls=fft_cpu)
     omega = fft.util.get_sample_frequencies(p, n_samples=42)
     spectrum = 4e-3 / np.abs(omega)
     p.cache_control_matrix(omega, cache_intermediates=True)
@@ -325,7 +327,7 @@ def test_decay_amplitude_spectrum_raises():
     (tests/test_core.py:584-591)."""
     p = make_pulse(rand_pulse_arrays(2, 1, 1, 1,
                                      local_rng=np.random.default_rng(91)),
-                   cls=fft)
+                   cls=fft_cpu)
     omega = np.linspace(0.5, 5, 43)
     spectrum = np.random.default_rng(92).standard_normal(78)
     for i in range(4):

@@ -13,12 +13,17 @@ import pytest
 import torch
 
 from filter_functions_tpu.ops import dword_pallas
-from filter_functions_tpu_torch.ops import dword
+from filter_functions_tpu_torch.ops import dword, ozaki
 
-#: Kernel-against-plain shapes: (K, J, C, n_d, slice_bits).  The first is
-#: the Pallas test shape, the second the flagship's (K = G d^2 = 3328,
-#: 18 noise operators, 256 basis elements, 5 digits of 7 bits).
-SHAPES = {'small': (512, 3, 128, 4, 7), 'flagship': (3328, 18, 256, 5, 7)}
+#: Kernel-against-plain shapes: (K, J, C, n_d, slice_bits, batch).  The
+#: first is the Pallas test shape, the second the flagship's (K = G d^2 =
+#: 3328, 18 noise operators, 256 basis elements, 5 digits of 7 bits, the
+#: main path's 2 pulses a call), the third a ragged K (K % 16 != 0: byte
+#: stores), the fourth a K above the kernel's register cap of 16384.
+SHAPES = {'small': (512, 3, 128, 4, 7, 2),
+          'flagship': (3328, 18, 256, 5, 7, 2),
+          'ragged': (333, 2, 9, 5, 7, 3),
+          'above_cap': (20000, 2, 16, 5, 7, 1)}
 
 
 def _factors(K, J, C, seed, batch=None):
@@ -107,7 +112,7 @@ def test_reference_matches_xla_arithmetic_flagship_shape():
     """Bit-exact against the XLA digit arithmetic at the flagship shape,
     with one all-zero C column: its J columns of D are zero, their bit
     length is 0 and their shift the full top bit, 29."""
-    K, J, C, n_d, sb = SHAPES['flagship']
+    K, J, C, n_d, sb, _ = SHAPES['flagship']
     zbr, zbi, zcr, zci = _factors(K, J, C, seed=17)
     zcr[:, 5] = 0
     zci[:, 5] = 0
@@ -160,6 +165,49 @@ def test_reference_batch_axis_is_independent():
         np.testing.assert_array_equal(shifts[b].numpy(), want_s)
 
 
+def test_single_product_word_matches_split_word():
+    """The CUDA kernel's word, one 64-bit product (int64(zB) zC + 2^17 +
+    2^11) >> 18, equals the plain version's 12-bit split word bit for bit
+    on seeded factors in [-2^23, 2^23] and at the four corners +-2^23,
+    where |w| reaches its maximum 2^28."""
+    rng = np.random.default_rng(22)
+    corners = np.array([[2**23, 2**23], [2**23, -2**23], [-2**23, 2**23],
+                        [-2**23, -2**23]])
+    zb, zc = np.concatenate(
+        [rng.integers(-2**23, 2**23, (10**6, 2), endpoint=True), corners]).T
+    tb, tc = (torch.from_numpy(z.astype(np.int32))[:, None] for z in (zb, zc))
+    split = dword._outer_word(*dword._split12(tb), *dword._split12(tc))
+    single = (torch.from_numpy(zb) * torch.from_numpy(zc)
+              + (1 << 17) + (1 << 11)) >> 18
+    assert torch.equal(split[:, 0, 0].long(), single)
+    assert single.abs().max().item() == 2**28
+    assert (single[-4:].abs() == 2**28).all()
+
+
+def test_fix_factors_lie_in_the_kernel_domain():
+    """ops.ozaki._fix rounds its factors into [-2^23, 2^23], the domain of
+    the kernel's single-product word: a column whose max is an exact
+    power of two reaches 2^23 itself, one just above a power of two
+    stays inside."""
+    rng = np.random.default_rng(23)
+    scale = 10.0**rng.integers(-6, 6, (1, 1, 8))
+    scale[..., :2] = 1.0
+    re = rng.standard_normal((2, 64, 8)) * scale
+    im = rng.standard_normal((2, 64, 8)) * scale
+    re[:, :, 0], im[:, :, 0] = re[:, :, 0] * 1e-3, im[:, :, 0] * 1e-3
+    re[0, 5, 0], im[1, 9, 0] = 4.0, -0.25
+    re[:, :, 1] = np.clip(re[:, :, 1], -0.1, 0.1)
+    im[:, :, 1] = np.clip(im[:, :, 1], -0.1, 0.1)
+    re[0, 7, 1] = -0.125 * (1 + 2.0**-52)
+    im[1, 2, 1] = 0.125 * (1 + 2.0**-40)
+    zr, zi, e = ozaki._fix(torch.from_numpy(re), torch.from_numpy(im))
+    assert zr.dtype == zi.dtype == torch.int32
+    assert max(zr.abs().max().item(), zi.abs().max().item()) <= 2**23
+    assert zr[0, 5, 0].item() == 2**23 and zi[1, 9, 0].item() == -2**23
+    assert zr[0, 7, 1].abs().item() <= 2**23
+    assert zi[1, 2, 1].abs().item() <= 2**23
+
+
 @pytest.mark.parametrize('bad', ['dtype', 'rank', 'shape', 'layout'])
 def test_wrapper_rejects_bad_input(bad):
     """The wrapper checks type, rank, shapes and the digit layout before
@@ -194,10 +242,10 @@ def cuda_device():
 @pytest.mark.parametrize('shape', sorted(SHAPES))
 def test_kernel_matches_reference_on_card(shape, cuda_device):
     """The CUDA kernel is bit-exact against the plain version on the
-    card, at a batch of 2 pulses."""
-    K, J, C, n_d, sb = SHAPES[shape]
+    card."""
+    K, J, C, n_d, sb, batch = SHAPES[shape]
     factors = [torch.from_numpy(f).to(cuda_device)
-               for f in _factors(K, J, C, seed=21, batch=2)]
+               for f in _factors(K, J, C, seed=21, batch=batch)]
     before = dword.launches
     digits, shifts = dword.dword_digits(*factors, n_d, sb)
     torch.cuda.synchronize()

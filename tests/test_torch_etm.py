@@ -19,6 +19,7 @@ from filter_functions_tpu import numeric as jnumeric
 from filter_functions_tpu_torch import convert, functional, numeric
 from filter_functions_tpu_torch.superoperator import liouville_is_CP
 from testutil import make_pulse, rand_pulse_arrays
+from torch_testutil import fft_cpu
 
 KINDS = ['shared', 'per_operator', 'cross', 'complex_cross']
 
@@ -26,7 +27,7 @@ KINDS = ['shared', 'per_operator', 'cross', 'complex_cross']
 def _pair(d, n_dt, seed, btype='GGM'):
     arrays = rand_pulse_arrays(d, n_dt, 3, 2,
                                local_rng=np.random.default_rng(seed))
-    return make_pulse(arrays, btype), make_pulse(arrays, btype, cls=fft)
+    return make_pulse(arrays, btype), make_pulse(arrays, btype, cls=fft_cpu)
 
 
 def _spectrum(kind, omega):
@@ -94,7 +95,7 @@ def _arrays(jp):
     return jarr, convert.pulse_arrays_from_numpy(
         jfunctional.PulseArrays(*(
             x.to_numpy() if hasattr(x, 'to_numpy') else np.asarray(x)
-            for x in jarr)))
+            for x in jarr)), device='cpu')
 
 
 @pytest.mark.parametrize('kind', KINDS)
@@ -173,7 +174,7 @@ def test_flagship_etm_matches_jax():
     integrand route would allocate over 1 GB): within 1e-13 (measured
     3.7e-15).  -tr K / d^2 matches ff.infidelity within 1e-12 relative
     (measured 4e-17), and the ETM is completely positive."""
-    port = fft.qft_pulse_sequence(4)
+    port = fft.qft_pulse_sequence(4, device='cpu')
     jp = ff.PulseSequence.from_arrays(
         *(getattr(port, f) for f in convert.PULSE_FIELDS))
     omega = np.geomspace(1e-2, 1e2, N_OMEGA_FLAGSHIP)

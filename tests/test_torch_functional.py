@@ -51,7 +51,7 @@ def flagship():
     dt = np.broadcast_to(p.dt, (BATCH,) + p.dt.shape).copy()
     jax_batch = jfunctional.PulseArrays(p.c_opers, cc, p.n_opers, nc, dt,
                                         p.basis)
-    port = convert.pulse_arrays_from_numpy(jax_batch)
+    port = convert.pulse_arrays_from_numpy(jax_batch, device='cpu')
     return p, jax_batch, port
 
 
@@ -211,10 +211,11 @@ def test_pulse_arrays_from_both_layouts():
     reads the npz without JAX."""
     npz = np.load(REPO / 'filter_functions_tpu' / 'models'
                   / 'qft4_arrays.npz')
-    from_npz = convert.pulse_arrays_from_numpy(dict(npz))
+    from_npz = convert.pulse_arrays_from_numpy(dict(npz), device='cpu')
     from_jax = convert.pulse_arrays_from_numpy(
-        jax.tree.map(np.asarray, __graft_entry__._qft_pulse_arrays(4)))
-    loaded = qft.qft_pulse_arrays(4)
+        jax.tree.map(np.asarray, __graft_entry__._qft_pulse_arrays(4)),
+        device='cpu')
+    loaded = qft.qft_pulse_arrays(4, device='cpu')
     for a, b, c in zip(from_npz, from_jax, loaded):
         assert torch.equal(a, b) and torch.equal(a, c)
     assert loaded.c_opers.shape == (18, 16, 16)
@@ -222,7 +223,7 @@ def test_pulse_arrays_from_both_layouts():
     assert loaded.basis.shape == (256, 16, 16)
     assert loaded.dt.dtype == torch.float64 and loaded.dt.shape == (13,)
     with pytest.raises(FileNotFoundError):
-        qft.qft_pulse_arrays(3)
+        qft.qft_pulse_arrays(3, device='cpu')
 
 
 def test_port_imports_no_jax():

@@ -43,7 +43,7 @@ def _jax_np(x):
 @pytest.fixture(scope='module')
 def pulses():
     """(JAX pulse, port pulse) of the flagship, from the same arrays."""
-    port = fft.qft_pulse_sequence(4)
+    port = fft.qft_pulse_sequence(4, device='cpu')
     jax_pulse = ff.PulseSequence.from_arrays(
         *(getattr(port, f) for f in convert.PULSE_FIELDS))
     return jax_pulse, port
@@ -55,7 +55,7 @@ def test_flagship_pulse_from_arrays(pulses):
     bit."""
     _, port = pulses
     arrays = functional.make_pulse_arrays(port)
-    for got, want in zip(arrays, fft.qft_pulse_arrays(4)):
+    for got, want in zip(arrays, fft.qft_pulse_arrays(4, device='cpu')):
         assert torch.equal(got, want)
     assert port.device == torch.device('cpu') and port.d == 16
     assert len(port) == 13 and port.basis.btype == 'GGM'
@@ -75,7 +75,7 @@ def test_native_object_path_matches_jax(pulses):
     got = fft.infidelity(port, spectrum, omega)
     assert got.shape == (18,) and got.dtype == torch.float64
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-13)
-    flat = functional.infidelity(fft.qft_pulse_arrays(4),
+    flat = functional.infidelity(fft.qft_pulse_arrays(4, device='cpu'),
                                  torch.tensor(spectrum), torch.tensor(omega))
     np.testing.assert_allclose(got.numpy(), flat.numpy(), rtol=1e-15,
                                atol=0)
@@ -103,7 +103,7 @@ def ozaki_pair(pulses):
     jp = ff.PulseSequence.from_arrays(
         *(getattr(port, f) for f in convert.PULSE_FIELDS))
     jp.diagonalize()
-    pulse = fft.qft_pulse_sequence(4)
+    pulse = fft.qft_pulse_sequence(4, device='cpu')
     for name in ('eigvals', 'eigvecs', 'propagators', 'total_propagator'):
         setattr(pulse, name, _jax_np(getattr(jp, name)))
     jax.clear_caches()
@@ -143,7 +143,7 @@ def test_ozaki_route_is_near_native(ozaki_pair):
     8.8e-11)."""
     omega, spectrum = _omega(N_OMEGA_SMALL)
     _, (got, ctrl) = ozaki_pair
-    native = fft.qft_pulse_sequence(4)
+    native = fft.qft_pulse_sequence(4, device='cpu')
     native_ctrl = native.get_control_matrix(omega).numpy()
     assert np.abs(ctrl - native_ctrl).max() <= \
         1e-6 * np.abs(native_ctrl).max()
@@ -209,7 +209,7 @@ def test_etm_on_card(cuda_device):
             t=native.t, contract='native'))
     etm_native = fft.error_transfer_matrix(native, spectrum, omega)
     assert (etm - etm_native).abs().max().item() <= 1.6e-9
-    cpu = fft.error_transfer_matrix(fft.qft_pulse_sequence(4),
-                                    spectrum.cpu(), omega.cpu())
+    cpu = fft.error_transfer_matrix(
+        fft.qft_pulse_sequence(4, device='cpu'), spectrum.cpu(), omega.cpu())
     assert (etm_native.cpu() - cpu).abs().max().item() <= 1e-12
     assert superoperator.liouville_is_CP(etm, pulse.basis)

@@ -21,6 +21,7 @@ import filter_functions_tpu_torch as fft
 from filter_functions_tpu import functional as jfunctional
 from filter_functions_tpu_torch import convert, functional, numeric
 from testutil import make_pulse, rand_pulse_arrays, sigma
+from torch_testutil import fft_cpu
 
 #: (d, n_dt, n_omega) of the random pulses held against JAX.
 SIZES = [(2, 5, 50), (3, 7, 120), (4, 10, 200)]
@@ -37,7 +38,7 @@ def _pair(d, n_dt, seed, **kw):
     """The same random pulse in (JAX, port)."""
     arrays = rand_pulse_arrays(d, n_dt, local_rng=np.random.default_rng(seed),
                                **kw)
-    return make_pulse(arrays), make_pulse(arrays, cls=fft)
+    return make_pulse(arrays), make_pulse(arrays, cls=fft_cpu)
 
 
 def _close(got, want, rel=1e-12):
@@ -70,7 +71,8 @@ def test_identifiers_sorted_and_named_like_jax():
                                           getattr(want, name))
         assert got.device == torch.device('cpu')
     tensor_ops = fft.PulseSequence([[torch.tensor(X), torch.tensor([1.0])]],
-                                   [[Z, [1.0]]], torch.tensor([1.0]))
+                                   [[Z, [1.0]]], torch.tensor([1.0]),
+                                   device='cpu')
     np.testing.assert_array_equal(tensor_ops.c_opers[0], X)
 
 
@@ -136,7 +138,7 @@ def test_from_arrays_validation(field):
     as the JAX package does, and takes the arrays unsorted."""
     arrays = dict(zip(convert.PULSE_FIELDS, rand_pulse_arrays(
         2, 3, local_rng=np.random.default_rng(2))))
-    good = fft.PulseSequence.from_arrays(**arrays)
+    good = fft.PulseSequence.from_arrays(**arrays, device='cpu')
     np.testing.assert_array_equal(good.c_oper_identifiers,
                                   arrays['c_oper_identifiers'])
     bad = dict(arrays)
@@ -150,7 +152,7 @@ def test_from_arrays_validation(field):
     else:
         bad[field] = arrays[field][:, :2]
     with pytest.raises(ValueError):
-        fft.PulseSequence.from_arrays(**bad)
+        fft.PulseSequence.from_arrays(**bad, device='cpu')
 
 
 def test_attributes_and_unsupported_operations():
@@ -189,29 +191,29 @@ def test_equality_matrix():
     rng = np.random.default_rng(4)
     cc, nc = rng.standard_normal(4), rng.random(4)
     dt = np.abs(rng.standard_normal(4)) + 0.1
-    a = fft.PulseSequence([[X, cc, 'X']], [[Z, nc, 'Z']], dt)
+    pulse = fft_cpu.PulseSequence
+    a = pulse([[X, cc, 'X']], [[Z, nc, 'Z']], dt)
     assert not (a == 1) and a != 1
     variants = [
-        fft.PulseSequence([[X, np.r_[cc, 1.0], 'X']],
-                          [[Z, np.r_[nc, 1.0], 'Z']], np.r_[dt, 1.0]),
-        fft.PulseSequence([[X, cc, 'X']], [[Z, nc, 'Z']], dt * 2),
-        fft.PulseSequence([[Y, cc, 'X']], [[Z, nc, 'Z']], dt),
-        fft.PulseSequence([[X, cc + 1, 'X']], [[Z, nc, 'Z']], dt),
-        fft.PulseSequence([[X, cc, 'X']], [[Y, nc, 'Z']], dt),
-        fft.PulseSequence([[X, cc, 'X']], [[Z, nc + 1, 'Z']], dt),
-        fft.PulseSequence([[X, cc, 'foo']], [[Z, nc, 'Z']], dt),
-        fft.PulseSequence([[X, cc, 'X']], [[Z, nc, 'foo']], dt),
-        fft.PulseSequence([[X, cc, 'X']], [[Z, nc, 'Z']], dt,
-                          fft.Basis(rand_pulse_arrays(2, 1)[0])),
+        pulse([[X, np.r_[cc, 1.0], 'X']], [[Z, np.r_[nc, 1.0], 'Z']],
+              np.r_[dt, 1.0]),
+        pulse([[X, cc, 'X']], [[Z, nc, 'Z']], dt * 2),
+        pulse([[Y, cc, 'X']], [[Z, nc, 'Z']], dt),
+        pulse([[X, cc + 1, 'X']], [[Z, nc, 'Z']], dt),
+        pulse([[X, cc, 'X']], [[Y, nc, 'Z']], dt),
+        pulse([[X, cc, 'X']], [[Z, nc + 1, 'Z']], dt),
+        pulse([[X, cc, 'foo']], [[Z, nc, 'Z']], dt),
+        pulse([[X, cc, 'X']], [[Z, nc, 'foo']], dt),
+        pulse([[X, cc, 'X']], [[Z, nc, 'Z']], dt,
+              fft.Basis(rand_pulse_arrays(2, 1)[0])),
     ]
     for b in variants:
         assert not (a == b) and a != b
-    assert a == fft.PulseSequence([[X, cc.copy(), 'X']],
-                                  [[Z, nc.copy(), 'Z']], dt.copy())
-    joined = fft.PulseSequence([[X, [1.0, 1.0], 'X']],
-                               [[Z, [1.0, 1.0], 'Z']], [0.5, 0.5])
-    assert joined == fft.PulseSequence([[X, [1.0], 'X']],
-                                       [[Z, [1.0], 'Z']], [1.0])
+    assert a == pulse([[X, cc.copy(), 'X']], [[Z, nc.copy(), 'Z']],
+                      dt.copy())
+    joined = pulse([[X, [1.0, 1.0], 'X']], [[Z, [1.0, 1.0], 'Z']],
+                   [0.5, 0.5])
+    assert joined == pulse([[X, [1.0], 'X']], [[Z, [1.0], 'Z']], [1.0])
     assert joined != 'a string'
 
 
@@ -224,7 +226,7 @@ def test_slicing_copy_and_prefix_reuse():
     jp, p = _pair(3, 6, 5)
     omega = _omega(60)
     for key in (slice(1, 4), slice(None, None, 2), 3, slice(-2, None)):
-        want = convert.pulse_sequence_from_numpy(jp[key])
+        want = convert.pulse_sequence_from_numpy(jp[key], device='cpu')
         assert p[key] == want
         assert p[key].device == p.device
     with pytest.raises(IndexError):
@@ -384,12 +386,12 @@ def test_control_matrix_and_filter_functions_match_jax(d, n_dt, n_omega):
         _close(p.get_filter_function(omega, which),
                jp.get_filter_function(omega, which))
     _close(p.total_propagator_liouville, jp.total_propagator_liouville)
-    converted = convert.pulse_sequence_from_numpy(jp)
+    converted = convert.pulse_sequence_from_numpy(jp, device='cpu')
     assert converted == p
     _close(converted.get_control_matrix(omega), ctrl, 1e-15)
     mapping = {f: getattr(jp, f) for f in convert.PULSE_FIELDS}
     assert convert.pulse_sequence_from_numpy(
-        {**mapping, 'basis': jp.basis.np}) == p
+        {**mapping, 'basis': jp.basis.np}, device='cpu') == p
 
 
 @pytest.mark.parametrize('d, n_dt, n_omega', SIZES)
@@ -461,14 +463,14 @@ def test_infidelity_matches_jax(basis, kind):
     rng = np.random.default_rng(50)
     arrays = rand_pulse_arrays(2, 4, local_rng=rng)
     if basis == 'traceless':
-        jp, p = make_pulse(arrays), make_pulse(arrays, cls=fft)
+        jp, p = make_pulse(arrays), make_pulse(arrays, cls=fft_cpu)
     else:
         elems = _nontraceless_basis()
         jp = make_pulse(arrays)
         jp.basis = ff.Basis(elems)
         p = fft.PulseSequence.from_arrays(
             *(getattr(jp, f) for f in convert.PULSE_FIELDS),
-            basis=fft.Basis(elems))
+            basis=fft.Basis(elems), device='cpu')
         assert not p.basis.istraceless
     omega = _omega(100)
     spectrum = _spectrum(kind, omega, 3, rng)
@@ -543,7 +545,7 @@ def test_pulse_correlations_match_jax():
         parts[-1].cache_filter_function(omega)
     jp = ff.concatenate(parts, calc_pulse_correlation_FF=True)
     ctrl_pc = jp.get_pulse_correlation_control_matrix().to_numpy()
-    p = convert.pulse_sequence_from_numpy(jp)
+    p = convert.pulse_sequence_from_numpy(jp, device='cpu')
     with pytest.raises(fft.util.CalculationError):
         p.get_pulse_correlation_filter_function()
     with pytest.raises(fft.util.CalculationError):
@@ -563,7 +565,7 @@ def test_pulse_correlations_match_jax():
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-13)
     with pytest.raises(ValueError, match='omega not equal'):
         fft.infidelity(p, spectrum[1:], omega[1:], which='correlations')
-    q = convert.pulse_sequence_from_numpy(jp)
+    q = convert.pulse_sequence_from_numpy(jp, device='cpu')
     q.cache_filter_function(omega, control_matrix=ctrl_pc,
                             which='generalized')
     _close(q.get_pulse_correlation_filter_function('generalized'),

@@ -19,6 +19,7 @@ import filter_functions_tpu_torch as fft
 from filter_functions_tpu import numeric as jnumeric
 from filter_functions_tpu_torch import numeric
 from testutil import make_pulse, rand_pulse_arrays
+from torch_testutil import fft_cpu
 
 
 def _np(x):
@@ -42,7 +43,7 @@ def _close(got, want, rel=1e-12):
 def _pair(d, n_dt, seed, n_nops=3):
     arrays = rand_pulse_arrays(d, n_dt, n_nops=n_nops,
                                local_rng=np.random.default_rng(seed))
-    return make_pulse(arrays), make_pulse(arrays, cls=fft)
+    return make_pulse(arrays), make_pulse(arrays, cls=fft_cpu)
 
 
 def _grids():
