@@ -52,6 +52,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       second-order part of row 0's cumulant function within 1e-15, and
       rows 0 and 63 within 1e-12 of the CPU; times 5 calls, median in ms
       per evaluation.
+8. gradients.
+   a. ``torch.autograd.grad`` of the summed ``functional.
+      batched_infidelity`` of phase 4's rows 0-3 (chunks of 2, 1000
+      frequencies) with respect to the control coefficients, through the
+      default CUDA route: the forward pass must launch the kernel once
+      per chunk and the backward pass not at all.  Checks that the
+      gradient is finite, within 1e-5 (relative to its largest entry) of
+      the native route's gradient on the card, and that the card's
+      native row 0 is within 1e-10 relative of the CPU's; times forward
+      plus backward of both routes, median of 5, in ms per pulse, and
+      reports the peak device memory.
+   b. ``fft.infidelity_derivative`` (the analytic derivative) of the QFT
+      pulse on the card at 200 frequencies: summed over the noise
+      operators it must be within 1e-9 (relative to the largest entry)
+      of the native autograd gradient at the same frequencies.  Prints
+      how many eigenvalue pairs of the card's diagonalization are
+      nearly but not exactly degenerate, times 3 cold calls (median)
+      and reports the peak device memory.
+   c. bench.py's ``config_grad`` inputs (d = 2, X/2 and Y/2 controls,
+      Z/2 noise, 8 segments, batch 256, 200 frequencies, S = 1e-3/omega,
+      ``default_rng(3)``): autograd of ``batched_infidelity``, median of
+      5 in ms per pulse; row 0 within 1e-12 absolute of the analytic
+      derivative summed over the noise operators.
 
 Before the last line come the card's label and the kernels' JSON
 record, in that order; the last line is
@@ -108,6 +131,27 @@ ETM_BATCH_PARITY = 1e-13
 ANTISYMMETRY = 1e-15
 #: config_second_order's shapes: (d, segments, frequencies, batch).
 SO_SHAPE = (4, 8, 200, 64)
+#: Pulses and chunk size of the flagship autograd (8a): every chunk's
+#: graph stays alive until the backward pass.
+GRAD_BATCH = 4
+#: The Ozaki route's gradient against the native route's, relative to the
+#: largest entry: its backward returns the gradient of the split-float32
+#: operand P in float32, as the JAX package's
+#: (tests/test_gradient.py::test_jax_grad_through_deep_factored_contraction).
+GRAD_PARITY = 1e-5
+#: The card's native gradient against the CPU's, relative.
+GRAD_CPU_PARITY = 1e-10
+#: Frequencies of the analytic flagship derivative (8b): one (n_ctrl,
+#: n_w, G, n_nops, d^2) complex128 array is 3.45 GB there.
+N_OMEGA_ANALYTIC = 200
+#: The analytic derivative against autograd, relative to the largest
+#: entry.
+ANALYTIC_PARITY = 1e-9
+#: config_grad's row 0 against the analytic derivative, absolute
+#: (BASELINE.json records 1.32e-14 for the JAX package).
+GRAD_CONFIG_PARITY = 1e-12
+#: config_grad's shapes: (segments, frequencies, batch).
+GRAD_SHAPE = (8, 200, 256)
 
 
 def _card_label() -> str:
@@ -129,6 +173,18 @@ def _cuda_ms(fn, runs: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / runs
+
+
+def _median_ms(fn, runs: int) -> float:
+    """Median host time of *fn*, ending in a synchronization, in ms."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
 
 
 def dword_bound_ms(K, J, C, n_d, batch) -> float:
@@ -259,16 +315,10 @@ def main() -> int:
 
     # 5. timing
     for name in ('ozaki', 'native'):
-        times = []
-        for _ in range(N_TIMED):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            functional.batched_infidelity(batched, spectrum, omega,
-                                          chunk_size=CHUNK, contract=name)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        per_pulse = statistics.median(times) / BATCH * 1e3
-        print(f'timing: {name} route {per_pulse:.4f} ms/pulse (median of '
+        ms = _median_ms(lambda: functional.batched_infidelity(
+            batched, spectrum, omega, chunk_size=CHUNK, contract=name),
+            N_TIMED)
+        print(f'timing: {name} route {ms / BATCH:.4f} ms/pulse (median of '
               f'{N_TIMED}, batch {BATCH}, chunk {CHUNK}) [{card}]')
     print(f'peak device memory: '
           f'{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB')
@@ -281,16 +331,23 @@ def main() -> int:
     etm_launches = etm_flagship(device, card, object_infid)
     etm_second_order(device, card)
 
+    # 8. gradients
+    grad_launches = autograd_flagship(device, card, batched, omega, spectrum)
+    analytic_flagship(device, card)
+    grad_config(device, card)
+
     print(card)
     print(json.dumps({'kernels': [{
         'name': 'dword_digits', 'route': 'cuda',
         'source': 'filter_functions_tpu_torch/csrc/dword_digits.cu',
         'replaces': 'filter_functions_tpu/ops/dword_pallas.py:198',
-        'launches': launches + object_launches + etm_launches,
+        'launches': launches + object_launches + etm_launches
+        + grad_launches,
         'launches_by_path': {
             'functional.batched_infidelity': launches,
             'numeric.infidelity (PulseSequence)': object_launches,
-            'numeric.error_transfer_matrix (PulseSequence)': etm_launches},
+            'numeric.error_transfer_matrix (PulseSequence)': etm_launches,
+            'functional.batched_infidelity (autograd)': grad_launches},
         'max_abs_err': kernel_err, 'ms': kernel_ms, 'plain_ms': plain_ms,
         'bound_ms': bound_ms, 'bound_by': 'bytes', 'bound': 'memory',
         'pct_of_bound': 100 * bound_ms / kernel_ms, 'library_ms': None,
@@ -348,15 +405,11 @@ def object_path(device, card, native_row0, ozaki_row0):
     print('object path: the cached second call launched nothing; filter '
           f'function {tuple(filter_function.shape)} {filter_function.dtype}')
     peak = torch.cuda.max_memory_allocated(device)
-    times = []
-    for _ in range(N_TIMED):
+
+    def cold():
         pulse.cleanup('all')
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         fft.infidelity(pulse, spectrum, omega)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    print(f'timing: object path {statistics.median(times) * 1e3:.4f} ms per '
+    print(f'timing: object path {_median_ms(cold, N_TIMED):.4f} ms per '
           f'cold call (median of {N_TIMED}, caches cleared before each); '
           f'peak device memory {peak / 2**30:.2f} GiB [{card}]')
     return launches, infid
@@ -416,18 +469,13 @@ def etm_flagship(device, card, infid) -> int:
     if not is_cp:
         raise AssertionError('the ETM is not completely positive')
 
-    times = []
-    for _ in range(N_TIMED):
+    def cold():
         pulse.cleanup('all')
         dword.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         fft.error_transfer_matrix(pulse, spectrum, omega)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
         if dword.launches <= 0:
             raise AssertionError('a cold ETM call launched no kernel')
-    print(f'timing: etm flagship {statistics.median(times) * 1e3:.4f} ms '
+    print(f'timing: etm flagship {_median_ms(cold, N_TIMED):.4f} ms '
           f'per cold call (median of {N_TIMED}, caches cleared before '
           f'each); peak device memory {peak / 2**30:.2f} GiB [{card}]')
     return launches
@@ -511,17 +559,152 @@ def etm_second_order(device, card) -> None:
         raise AssertionError('the second-order cumulant is not '
                              'antisymmetric')
 
-    times = []
-    for _ in range(N_TIMED):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        functional.batched_error_transfer_matrix(p, spectrum, omega, basis,
-                                                 second_order=True)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    per_eval = statistics.median(times) / batch * 1e3
-    print(f'timing: etm second order {per_eval:.4f} ms per evaluation '
+    ms = _median_ms(lambda: functional.batched_error_transfer_matrix(
+        p, spectrum, omega, basis, second_order=True), N_TIMED)
+    print(f'timing: etm second order {ms / batch:.4f} ms per evaluation '
           f'(median of {N_TIMED} calls of batch {batch}) [{card}]')
+
+
+def _infidelity_grad(p, spectrum, omega, chunk_size=None, contract=None):
+    """(infidelities, gradient of their sum w.r.t. the control
+    coefficients, kernel launches of the forward pass, of the backward
+    pass) of the pulses *p*."""
+    c_coeffs = p.c_coeffs.detach().clone().requires_grad_(True)
+    dword.launches = 0
+    infid = functional.batched_infidelity(p._replace(c_coeffs=c_coeffs),
+                                          spectrum, omega, chunk_size,
+                                          contract)
+    forward = dword.launches
+    grad, = torch.autograd.grad(infid.sum(), c_coeffs)
+    if grad.is_cuda:
+        torch.cuda.synchronize()
+    return infid.detach(), grad, forward, dword.launches - forward
+
+
+def _rel(a, b) -> float:
+    """max |a - b| relative to max |b|."""
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def autograd_flagship(device, card, batched, omega, spectrum) -> int:
+    """Phase 8a: autograd of the flagship's batched infidelity on both
+    routes; returns the kernel's launches in the forward pass."""
+    p = batched._replace(c_coeffs=batched.c_coeffs[:GRAD_BATCH],
+                         n_coeffs=batched.n_coeffs[:GRAD_BATCH],
+                         dt=batched.dt[:GRAD_BATCH])
+    route = config.contraction_mode(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    _, grad, forward, backward = _infidelity_grad(p, spectrum, omega, CHUNK)
+    peak = torch.cuda.max_memory_allocated(device)
+    print(f'autograd flagship: batch {GRAD_BATCH} chunk {CHUNK}, route '
+          f'{route!r}, dword_digits launches {forward} forward, {backward} '
+          f'backward')
+    if forward != GRAD_BATCH // CHUNK or backward != 0:
+        raise AssertionError('the autograd path launched dword_digits '
+                             f'{forward} times forward and {backward} '
+                             f'backward, not {GRAD_BATCH // CHUNK} and 0')
+    if grad.shape != p.c_coeffs.shape or not torch.isfinite(grad).all():
+        raise AssertionError(f'bad gradient: {tuple(grad.shape)}, finite '
+                             f'{bool(torch.isfinite(grad).all())}')
+    _, native, _, _ = _infidelity_grad(p, spectrum, omega, CHUNK, 'native')
+    to_native = _rel(grad, native)
+    cpu_p = qft.qft_pulse_arrays(4, device='cpu')
+    _, cpu, _, _ = _infidelity_grad(
+        cpu_p._replace(c_coeffs=cpu_p.c_coeffs[None],
+                       n_coeffs=cpu_p.n_coeffs[None], dt=cpu_p.dt[None]),
+        spectrum.cpu(), omega.cpu(), contract='native')
+    to_cpu = _rel(native[0].cpu(), cpu[0])
+    print(f'autograd flagship: Ozaki against native gradient {to_native:.3e} '
+          f'relative (bound {GRAD_PARITY}); card native row 0 against the '
+          f'CPU {to_cpu:.3e} (bound {GRAD_CPU_PARITY}); max |grad| '
+          f'{native.abs().max().item():.6e}')
+    if not to_native <= GRAD_PARITY:
+        raise AssertionError('the Ozaki gradient is off the native one')
+    if not to_cpu <= GRAD_CPU_PARITY:
+        raise AssertionError('the card and the CPU disagree on the gradient')
+    for name in ('ozaki', 'native'):
+        ms = _median_ms(lambda: _infidelity_grad(p, spectrum, omega, CHUNK,
+                                                 name), N_TIMED)
+        print(f'timing: autograd {name} route {ms / GRAD_BATCH:.4f} ms/pulse '
+              f'forward plus backward (median of {N_TIMED}, batch '
+              f'{GRAD_BATCH}, chunk {CHUNK}) [{card}]')
+    print(f'autograd flagship: peak device memory {peak / 2**30:.2f} GiB '
+          f'(Ozaki route) [{card}]')
+    return forward
+
+
+def analytic_flagship(device, card) -> None:
+    """Phase 8b: the analytic infidelity derivative of the flagship
+    against autograd."""
+    omega = torch.from_numpy(np.geomspace(1e-2, 1e2, N_OMEGA_ANALYTIC)).to(
+        device)
+    spectrum = 1e-4 / omega
+    pulse = qft.qft_pulse_sequence(4, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    analytic = fft.infidelity_derivative(pulse, spectrum, omega)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    if analytic.shape != (18, 13, 18) or not torch.isfinite(analytic).all():
+        raise AssertionError(f'bad analytic derivative: '
+                             f'{tuple(analytic.shape)}')
+    p = qft.qft_pulse_arrays(4, device=device)
+    _, grad, _, _ = _infidelity_grad(
+        p._replace(c_coeffs=p.c_coeffs[None], n_coeffs=p.n_coeffs[None],
+                   dt=p.dt[None]), spectrum, omega, contract='native')
+    to_autograd = _rel(analytic.sum(0).T, grad[0])
+    w = pulse.eigvals
+    gaps = (w[..., :, None] - w[..., None, :]).abs()
+    near = ((gaps > 0)
+            & (gaps <= numeric._DEGENERATE_GAP * (1 + w[..., None, :].abs())))
+    exact = (gaps == 0).sum().item() - w.numel()
+    print(f'analytic flagship: {N_OMEGA_ANALYTIC} frequencies, summed over '
+          f'noise operators against native autograd {to_autograd:.3e} '
+          f'relative (bound {ANALYTIC_PARITY}); eigenvalue pairs exactly '
+          f'degenerate {exact}, nearly degenerate (0 < gap <= '
+          f'{numeric._DEGENERATE_GAP} (1 + |w|)) {near.sum().item()}')
+    if not to_autograd <= ANALYTIC_PARITY:
+        raise AssertionError('the analytic derivative is off autograd')
+
+    def cold():
+        pulse.cleanup('all')
+        fft.infidelity_derivative(pulse, spectrum, omega)
+    ms = _median_ms(cold, 3)
+    print(f'timing: analytic flagship {ms:.4f} ms per cold call (median of '
+          f'3, caches cleared before each); peak device memory '
+          f'{peak / 2**30:.2f} GiB [{card}]')
+
+
+def grad_config(device, card) -> None:
+    """Phase 8c: bench.py's config_grad batch through autograd, row 0
+    against the analytic derivative."""
+    n_dt, n_omega, batch = GRAD_SHAPE
+    X, Y, Z = (torch.from_numpy(m) for m in fft.util.paulis[1:])
+    rng = np.random.default_rng(3)
+    c_coeffs = rng.standard_normal((batch, 2, n_dt))
+    dt = np.broadcast_to(1 - rng.random(n_dt), (batch, n_dt)).copy()
+    omega = torch.from_numpy(np.geomspace(1e-2, 1e2, n_omega)).to(device)
+    spectrum = 1e-3 / omega
+    p = functional.PulseArrays(
+        torch.stack([X / 2, Y / 2]).to(device),
+        torch.from_numpy(c_coeffs).to(device), (Z / 2)[None].to(device),
+        torch.ones(batch, 1, n_dt, dtype=torch.float64, device=device),
+        torch.from_numpy(dt).to(device), fft.Basis.ggm(2).tensor(device))
+    _, grad, _, _ = _infidelity_grad(p, spectrum, omega)
+    pulse = fft.PulseSequence(
+        [[X.numpy() / 2, c_coeffs[0, 0], 'X'],
+         [Y.numpy() / 2, c_coeffs[0, 1], 'Y']],
+        [[Z.numpy() / 2, np.ones(n_dt), 'Z']], dt[0], device=device)
+    analytic = fft.infidelity_derivative(pulse, spectrum, omega)
+    err = (grad[0] - analytic.sum(0).T).abs().max().item()
+    print(f'grad config: batch {batch}, {n_dt} segments, {n_omega} '
+          f'frequencies; row 0 autograd against the analytic derivative max '
+          f'|diff| {err:.3e} (bound {GRAD_CONFIG_PARITY})')
+    if not (torch.isfinite(grad).all() and err <= GRAD_CONFIG_PARITY):
+        raise AssertionError('config_grad: autograd is off the analytic '
+                             'derivative')
+    ms = _median_ms(lambda: _infidelity_grad(p, spectrum, omega), N_TIMED)
+    print(f'timing: grad config autograd {ms / batch:.4f} ms/pulse (median '
+          f'of {N_TIMED}, batch {batch}) [{card}]')
 
 
 if __name__ == '__main__':

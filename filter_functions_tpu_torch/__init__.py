@@ -9,15 +9,20 @@ JAX package: diagonalize, per-segment step terms, the control-matrix
 contraction (native complex128, or the factored int8 Ozaki route with
 the hand-written CUDA kernel of :mod:`.ops.dword`), the second-order
 integral lattice, the spectral integrals and the cumulant function.
+Derivatives with respect to the control amplitudes come from
+``torch.autograd`` through :mod:`.functional` on either contraction
+route, or in closed form from :mod:`.gradient`
+(:func:`infidelity_derivative`).
 
 Complex values are ``torch.complex128`` and reals ``torch.float64``;
 every computed value lives on an explicit device.  The package imports
 ``torch`` and never ``jax``.
 """
-from . import (basis, config, convert, functional, numeric, pulse_sequence,
-               superoperator, types, util)
+from . import (basis, config, convert, functional, gradient, numeric,
+               pulse_sequence, superoperator, types, util)
 from .basis import Basis
 from .functional import PulseArrays, batched_infidelity, control_matrix
+from .gradient import infidelity_derivative
 from .models.qft import qft_pulse_arrays, qft_pulse_sequence
 from .numeric import error_transfer_matrix, infidelity
 from .pulse_sequence import PulseSequence
@@ -25,7 +30,7 @@ from .superoperator import liouville_representation
 
 __all__ = ['Basis', 'PulseArrays', 'PulseSequence', 'batched_infidelity',
            'control_matrix', 'error_transfer_matrix', 'infidelity',
-           'liouville_representation',
+           'infidelity_derivative', 'liouville_representation',
            'qft_pulse_arrays', 'qft_pulse_sequence', 'basis', 'config',
-           'convert', 'functional', 'numeric', 'pulse_sequence',
+           'convert', 'functional', 'gradient', 'numeric', 'pulse_sequence',
            'superoperator', 'types', 'util']

@@ -226,6 +226,13 @@ class Basis:
             np.linalg.matrix_rank(self._np.reshape(len(self), -1))
             == self.d**2))
 
+    @property
+    def sparse(self) -> np.ndarray:
+        """The dense host array, as the JAX package's ``Basis.sparse``
+        returns it (the reference's COO property): no contraction here
+        takes a sparse format."""
+        return self._np
+
     # -- trace tensor ------------------------------------------------------------
     @property
     def four_element_traces(self) -> np.ndarray:

@@ -6,6 +6,11 @@ tensors.
 A pulse is a :class:`PulseArrays` of tensors.  Batched functions take a
 leading batch axis on ``c_coeffs``, ``n_coeffs`` and ``dt`` and share
 the operators and the basis, as the JAX package's ``vmap`` does.
+
+``control_matrix``, ``fidelity_filter_function``, ``infidelity`` and
+``batched_infidelity`` are differentiable in the tensors of the pulse
+(``torch.autograd``) on both contraction routes, at degenerate spectra
+too; the escalation decision stays outside the graph.
 """
 from __future__ import annotations
 
@@ -43,32 +48,49 @@ def make_pulse_arrays(pulse) -> PulseArrays:
 
 def _prep(p: PulseArrays, c_coeffs: torch.Tensor, n_coeffs: torch.Tensor,
           dt: torch.Tensor, omega: torch.Tensor
-          ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+          ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...],
+                     Optional[torch.Tensor]]:
     """Diagonalization and per-segment step terms of the pulses with
     these coefficients and durations (any leading batch axes): (eigvals,
-    step terms)."""
+    step terms, the degenerate-eigenspace term of the control matrix,
+    :func:`.numeric._degenerate_control_matrix`, or None)."""
     ham = torch.einsum('jmn,...jg->...gmn', p.c_opers,
                        c_coeffs.to(p.c_opers.dtype))
     eigvals, eigvecs, propagators = numeric.diagonalize(ham, dt)
     zero = torch.zeros_like(dt[..., :1])
     t = torch.cat([zero, torch.cumsum(dt, -1)], -1)
-    return eigvals, numeric._ctrlmat_step_terms(
+    terms = numeric._ctrlmat_step_terms(
         eigvals, eigvecs, propagators[..., :-1, :, :], omega, p.basis,
         p.n_opers, n_coeffs, dt, t[..., :-1])
+    return eigvals, terms, numeric._degenerate_control_matrix(
+        ham, eigvals, eigvecs, terms, omega, dt)
+
+
+def _contract(terms: Tuple[torch.Tensor, ...],
+              degenerate: Optional[torch.Tensor], escalation: str,
+              contract: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The control matrix of step terms (:func:`.numeric.
+    _ctrlmat_contract`) plus its degenerate-eigenspace term, and the
+    quantization ratio."""
+    _, n_t, b_t, ph, integral = terms
+    ctrl, ratio = numeric._ctrlmat_contract(n_t, integral, b_t, ph,
+                                            escalation, contract)
+    if degenerate is not None:
+        ctrl = ctrl + degenerate
+    return ctrl, ratio
 
 
 def _infid_contract(terms: Tuple[torch.Tensor, ...], spectrum: torch.Tensor,
                     omega: torch.Tensor, d: int, escalation: str = 'stat',
-                    contract: str = 'native'
+                    contract: str = 'native',
+                    degenerate: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Control-matrix contraction and spectral integral of step terms.
 
     Returns (infidelity (..., n_nops), ratio (...)), the ratio being the
     quantization statistic of the deep factored contraction (0 off that
     route)."""
-    _, n_t, b_t, ph, integral = terms
-    ctrl, ratio = numeric._ctrlmat_contract(n_t, integral, b_t, ph,
-                                            escalation, contract)
+    ctrl, ratio = _contract(terms, degenerate, escalation, contract)
     diag = (ctrl.real * ctrl.real + ctrl.imag * ctrl.imag).sum(-2)
     infid = util.integrate(diag * spectrum, omega) / (2 * math.pi * d)
     return infid, ratio
@@ -85,13 +107,10 @@ def control_matrix(p: PulseArrays, omega: torch.Tensor,
     recomputed natively when its quantization statistic exceeds
     *escalation_tol* (0 disables the check)."""
     mode = config.contraction_mode(p.c_opers.device, contract)
-    _, (_, n_t, b_t, ph, integral) = _prep(p, p.c_coeffs, p.n_coeffs, p.dt,
-                                           omega)
-    ctrl, ratio = numeric._ctrlmat_contract(n_t, integral, b_t, ph, 'stat',
-                                            mode)
+    _, terms, degenerate = _prep(p, p.c_coeffs, p.n_coeffs, p.dt, omega)
+    ctrl, ratio = _contract(terms, degenerate, 'stat', mode)
     if escalation_tol > 0 and bool((ratio > escalation_tol).any()):
-        ctrl, _ = numeric._ctrlmat_contract(n_t, integral, b_t, ph,
-                                            'force', mode)
+        ctrl, _ = _contract(terms, degenerate, 'force', mode)
     return ctrl
 
 
@@ -133,9 +152,10 @@ def _batched_stat(p: PulseArrays, spectrum: torch.Tensor,
     infids, ratios = [], []
     for start in range(0, batch, chunk_size):
         sl = slice(start, start + chunk_size)
-        _, terms = _prep(p, p.c_coeffs[sl], p.n_coeffs[sl], p.dt[sl], omega)
+        _, terms, degenerate = _prep(p, p.c_coeffs[sl], p.n_coeffs[sl],
+                                     p.dt[sl], omega)
         infid, ratio = _infid_contract(terms, spectrum, omega, d,
-                                       escalation, contract)
+                                       escalation, contract, degenerate)
         infids.append(infid)
         ratios.append(ratio)
     return torch.cat(infids), torch.cat(ratios)
@@ -193,8 +213,8 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
     n_nops = p.n_opers.shape[0]
     idx = np.arange(n_nops)
     s = util.parse_spectrum(spectrum, omega, idx, device=omega.device)
-    eigvals, (_, n_t, b_t, ph, integral) = _prep(p, p.c_coeffs, p.n_coeffs,
-                                                 p.dt, omega)
+    eigvals, (_, n_t, b_t, ph, integral), _ = _prep(
+        p, p.c_coeffs, p.n_coeffs, p.dt, omega)
     step = numeric._ctrlmat_step_contract(n_t, integral, b_t, ph)
     ctrl = step.sum(-4)
     diagonal = s.ndim <= 2 and not s.is_complex()

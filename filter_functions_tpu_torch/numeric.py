@@ -28,11 +28,6 @@ from .basis import Basis
 from .ops import ozaki
 
 
-def _cexp(x: torch.Tensor) -> torch.Tensor:
-    """e^{ix} of a real tensor."""
-    return torch.complex(torch.cos(x), torch.sin(x))
-
-
 def _perm_tail(x: torch.Tensor, *order: int) -> torch.Tensor:
     """Permute the trailing ``len(order)`` axes of *x* by *order*,
     leaving the leading batch axes in place."""
@@ -43,18 +38,102 @@ def _perm_tail(x: torch.Tensor, *order: int) -> torch.Tensor:
 # -----------------------------------------------------------------------------
 # K0: diagonalization
 # -----------------------------------------------------------------------------
+#: Relative eigenvalue gap at or below which a pair counts as degenerate
+#: in the eigendecomposition's backward (the JAX package's
+#: ``cplx._eigh_jvp``).
+_DEGENERATE_GAP = 1e-12
+
+
+def _eig_gaps(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(w_j - w_i, mask of the pairs with |w_j - w_i| <= _DEGENERATE_GAP
+    (1 + |w_j|)) of eigenvalues (..., d); the diagonal is in the mask."""
+    gaps = w[..., None, :] - w[..., :, None]
+    return gaps, gaps.abs() <= _DEGENERATE_GAP * (1 + w[..., None, :].abs())
+
+
+class _Eigh(torch.autograd.Function):
+    r"""``torch.linalg.eigh`` with the backward of the JAX package's
+    eigh: the transpose of first-order perturbation theory
+    (``cplx._eigh_jvp``) with the degenerate pairs masked,
+
+        gH = V (diag(gw) + F o (V^H gV - gV^H V)/2) V^H,
+        F_ij = 1/(w_j - w_i), 0 on the pairs of :func:`_eig_gaps`.
+
+    Inside a degenerate eigenspace the mask drops the first-order terms
+    of the off-diagonal entries of V^H dH V, which a smooth function of
+    H still has; :class:`_DegeneratePropagator` and
+    :class:`_DegenerateControlMatrix` restore them where the pipeline
+    uses the eigendecomposition.
+    """
+
+    @staticmethod
+    def forward(ctx, h):
+        w, v = torch.linalg.eigh(h)
+        ctx.save_for_backward(w, v)
+        return w, v
+
+    @staticmethod
+    def backward(ctx, gw, gv):
+        w, v = ctx.saved_tensors
+        gaps, degenerate = _eig_gaps(w)
+        f = torch.where(degenerate, 0.0,
+                        1.0 / torch.where(degenerate, 1.0, gaps))
+        x = v.mH @ gv
+        inner = f * (x - x.mH) / 2 + torch.diag_embed(gw.to(v.dtype))
+        return v @ inner @ v.mH
+
+
+def _degenerate_grad(coeff: torch.Tensor, w: torch.Tensor, v: torch.Tensor
+                     ) -> torch.Tensor:
+    r"""gH of dL = Re sum_{(p,q) degenerate, p != q} coeff_pq M_pq,
+    M = V^H dH V: the Hermitian part of V conj(coeff) V^H on those
+    pairs."""
+    _, degenerate = _eig_gaps(w)
+    degenerate = degenerate & ~torch.eye(w.shape[-1], dtype=torch.bool,
+                                         device=w.device)
+    g = v @ torch.where(degenerate, coeff.conj(), 0.0) @ v.mH
+    return (g + g.mH) / 2
+
+
+class _DegeneratePropagator(torch.autograd.Function):
+    r"""Zero in value; its backward is the part of the derivative of the
+    segment propagators V e^{-i w dt} V^H that :class:`_Eigh` drops:
+    along the off-diagonal entries M_pq of a degenerate eigenspace, the
+    divided difference of e^{-i w dt} is -i dt e^{-i w_p dt}.
+
+    forward(h (..., d, d), w (..., d), v (..., d, d), dt (...)), the
+    eigendecomposition of h detached."""
+
+    @staticmethod
+    def forward(ctx, h, w, v, dt):
+        ctx.save_for_backward(w, v, dt)
+        return torch.zeros_like(h)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, v, dt = ctx.saved_tensors
+        slope = -1j * dt[..., None] * util.cexp(-dt[..., None] * w)
+        coeff = (v.mH @ g @ v).conj() * slope[..., :, None]
+        return _degenerate_grad(coeff, w, v), None, None, None
+
+
 def diagonalize(h: torch.Tensor, dt: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Eigendecomposition of a piecewise-constant Hamiltonian h (G, d, d)
     with segment durations dt (G,), and its cumulative propagators.
 
     Returns eigvals (G, d), eigvecs (G, d, d) and propagators
-    (G+1, d, d) with Q_0 the identity.
+    (G+1, d, d) with Q_0 the identity.  Differentiable in h
+    (:class:`_Eigh`, with the degenerate-eigenspace terms of the
+    propagators from :class:`_DegeneratePropagator`).
     """
     d = h.shape[-1]
-    eigvals, eigvecs = torch.linalg.eigh(h)
-    phase = _cexp(-dt[..., None] * eigvals)                 # e^{-i D dt}
+    eigvals, eigvecs = _Eigh.apply(h)
+    phase = util.cexp(-dt[..., None] * eigvals)                 # e^{-i D dt}
     piecewise = (eigvecs * phase[..., None, :]) @ eigvecs.mH
+    if torch.is_grad_enabled() and h.requires_grad:
+        piecewise = piecewise + _DegeneratePropagator.apply(
+            h, eigvals.detach(), eigvecs.detach(), dt.detach())
     cumulative = util.adot(piecewise, dim=-3)
     ident = torch.eye(d, dtype=h.dtype, device=h.device).expand(
         *h.shape[:-3], 1, d, d)
@@ -326,7 +405,7 @@ def _ctrlmat_step_terms(eigvals, eigvecs, propagators, omega, basis,
                                                  n_coeffs)
     vp = eigvecs_propagated[..., None, :, :]                # (G, 1, d, d)
     basis_transformed = vp.mH @ basis @ vp
-    phase_factors = _cexp(t[..., :, None] * omega)          # (G, n_w)
+    phase_factors = util.cexp(t[..., :, None] * omega)          # (G, n_w)
     integral = _first_order_integral_batched(omega, eigvals, dt)
     return (eigvecs_propagated, n_opers_transformed, basis_transformed,
             phase_factors, integral)
@@ -416,8 +495,9 @@ def _ctrlmat_contract(n_opers_transformed, integral, basis_transformed,
         out_re, out_im = ozaki.ozaki_matmul_c_outer(
             p_re, p_im, b_fac.real, b_fac.imag, c_fac.real, c_fac.imag,
             config.DEEP_PRECISION_BITS)
-        ratio = _deep_quant_ratio(out_re, out_im, p_re, p_im, b_fac,
-                                  c_fac, n_nops, n_basis)
+        with torch.no_grad():                   # a decision, not a value
+            ratio = _deep_quant_ratio(out_re, out_im, p_re, p_im, b_fac,
+                                      c_fac, n_nops, n_basis)
         out = torch.complex(out_re, out_im)
     else:
         p_mat = (integral * phase_factors[..., None, None]).reshape(
@@ -433,6 +513,99 @@ def _ctrlmat_contract(n_opers_transformed, integral, basis_transformed,
                             device=integral.device)
     out = out.reshape(*lead, n_w, n_nops, n_basis).movedim(-3, -1)
     return out, ratio
+
+
+#: |x| below which g'(x), g(x) = (e^{ix} - 1)/(ix), runs as its
+#: Maclaurin series, and the series' terms in x^2 per part: truncated at
+#: 17 0.3^16/18! < 1e-23.
+_DINT_SERIES_X = 0.3
+_DINT_TERMS = 8
+
+
+def _first_order_integral_slope(phi: torch.Tensor, dt: torch.Tensor
+                                ) -> torch.Tensor:
+    r"""d/dphi of the first-order integral (e^{i phi dt} - 1)/(i phi),
+    dt^2 g'(phi dt) with g'(x) = ((x cos x - sin x) + i (x sin x + cos x
+    - 1))/x^2, and for small |x| the series sum_{k>=1} k i^k x^{k-1}/(k+1)!
+    as one real polynomial in x^2 per part; complex128 of phi's shape, dt
+    broadcast against it."""
+    x = phi * dt
+    small = x.abs() < _DINT_SERIES_X
+    xs = torch.where(small, 1.0, x)
+    c, s = torch.cos(xs), torch.sin(xs)
+    x2 = x * x
+    re = torch.zeros_like(x)        # k = 2j + 2: x sum_j re_j x^{2j}
+    im = torch.zeros_like(x)        # k = 2j + 1: sum_j im_j x^{2j}
+    for j in range(_DINT_TERMS - 1, -1, -1):
+        re = re * x2 + (-1)**(j + 1) * (2 * j + 2) / math.factorial(2 * j + 3)
+        im = im * x2 + (-1)**j * (2 * j + 1) / math.factorial(2 * j + 2)
+    return dt * dt * torch.complex(
+        torch.where(small, x * re, (xs * c - s) / (xs * xs)),
+        torch.where(small, im, (xs * s + c - 1.0) / (xs * xs)))
+
+
+class _DegenerateControlMatrix(torch.autograd.Function):
+    r"""Zero in value; its backward is the part of the derivative of the
+    control matrix that :class:`_Eigh` drops.  Each segment contributes
+    sum_mn Bbar_mn I_mn Cbar_nm, a function of H_g whose derivative
+    along the off-diagonal entries D_pq of a degenerate eigenspace is
+
+        sum_mn I'_mn [D, Bbar]_mn Cbar_nm,
+
+    I'_mn the slope of the integral at phi = omega + w_m - w_n
+    (:func:`_first_order_integral_slope`).  The coefficient of D_pq
+    comes from the incoming cotangent G contracted with the phased slopes
+    over omega, one (n_nops n_b) x n_w x (G d^2) product the size of the
+    native route's D, then with Cbar and Bbar.
+
+    forward(h (..., G, d, d), w, v, n_opers_transformed, basis_transformed,
+    phase_factors, omega, dt), all but h detached; returns zeros of the
+    control matrix's shape (..., n_nops, n_b, n_w).
+    """
+
+    @staticmethod
+    def forward(ctx, h, w, v, n_t, b_t, ph, omega, dt):
+        ctx.save_for_backward(w, v, n_t, b_t, ph, omega, dt)
+        return h.new_zeros(*n_t.shape[:-4], n_t.shape[-4], b_t.shape[-3],
+                           omega.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        w, v, n_t, b_t, ph, omega, dt = ctx.saved_tensors
+        G, d = w.shape[-2:]
+        n_nops, n_basis, n_w = g.shape[-3:]
+        lead = g.shape[:-3]
+        phi = omega[:, None, None] + (w[..., :, None]
+                                      - w[..., None, :])[..., None, :, :]
+        slope = _first_order_integral_slope(
+            phi, dt[..., None, None, None]) * ph[..., None, None]
+        # U[a, k, (g m n)] = sum_o conj(G[a, k, o]) ph[g, o] I'[g, o, m, n]
+        u = g.conj().reshape(*lead, n_nops * n_basis, n_w) \
+            @ slope.movedim(-3, -4).reshape(*lead, n_w, G * d * d)
+        # z[g, a, m, n] = sum_k U[a, k, g, m, n] Cbar_k[g, n, m]
+        cbar = b_t.transpose(-1, -2).transpose(-4, -3)      # (k, g, m, n)
+        z = (u.reshape(*lead, n_nops, n_basis, G, d, d)
+             * cbar[..., None, :, :, :, :]).sum(-4).movedim(-4, -3)
+        x = n_t.movedim(-4, -3)                             # (g, a, m, n)
+        coeff = (z @ x.mT - x.mT @ z).sum(-3)
+        return (_degenerate_grad(coeff, w, v), None, None, None, None, None,
+                None, None)
+
+
+def _degenerate_control_matrix(h, eigvals, eigvecs, terms, omega, dt):
+    """The :class:`_DegenerateControlMatrix` term of the control matrix
+    of Hamiltonians *h* with eigendecomposition (eigvals, eigvecs) and
+    step terms *terms* (:func:`_ctrlmat_step_terms`), to be added to it;
+    None where no gradient reaches *h* or no eigenspace is degenerate."""
+    if not (torch.is_grad_enabled() and h.requires_grad):
+        return None
+    _, degenerate = _eig_gaps(eigvals.detach())
+    if not bool((degenerate.sum((-1, -2)) > eigvals.shape[-1]).any()):
+        return None
+    _, n_t, b_t, ph, _ = terms
+    return _DegenerateControlMatrix.apply(
+        h, eigvals.detach(), eigvecs.detach(), n_t.detach(), b_t.detach(),
+        ph.detach(), omega.detach(), dt.detach())
 
 
 def _ctrlmat_step_contract(n_opers_transformed, integral, basis_transformed,

@@ -1,9 +1,9 @@
 r"""Near-f64 complex matrix product from exact int8 products (Ozaki
 splitting), the deep factored route of the control-matrix contraction.
 
-Port of the forward pass of ``filter_functions_tpu.ops.ozaki.
-ozaki_matmul_c_outer`` with int8 digits and double-single ('ds')
-recombination -- the route the JAX package runs on an accelerator.  The
+Port of ``filter_functions_tpu.ops.ozaki.ozaki_matmul_c_outer`` with
+int8 digits and double-single ('ds') recombination -- the route the JAX
+package runs on an accelerator -- and its custom backward.  The
 operand P is split into int8 digit slices with power-of-two row scales;
 the operand ``D[k, (j c)] = B[k, j] * C[k, c]`` is never assembled in
 floating point: its digits come from 23-bit fixed-point factors through
@@ -12,7 +12,9 @@ accumulates exactly in int32 (``torch._int_mm``); the levels are summed
 in two-float32 arithmetic and widened to float64 once.
 
 The arithmetic follows the JAX package expression for expression, so on
-equal inputs the result is bit-exact against it.
+equal inputs the result is bit-exact against it.  The digit pipeline has
+no derivative; the backward applies the product rule to the map
+(P, B, C) -> P @ D in complex128 and launches no kernel.
 """
 from __future__ import annotations
 
@@ -180,13 +182,59 @@ def ozaki_matmul_c_outer(p_re: torch.Tensor, p_im: torch.Tensor,
                          precision_bits: int = config.DEEP_PRECISION_BITS
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     r"""Complex ``P @ D`` with ``D[k, (j c)] = B[k, j] * C[k, c]``, without
-    assembling D (forward pass only).
+    assembling D.
 
     P: (..., M, K) split re/im, float32 or float64; B: (..., K, J) and
     C: (..., K, C) float64, with the same leading axes as P.  Returns
     (re, im) of shape (..., M, J * C) in float64.  Requires a deep
     reduction (K > 256, int8 slice width 5 to 7 bits).
+
+    Differentiable (:class:`_OzakiOuter`): the backward assembles D once
+    in complex128 and returns each gradient in its input's dtype.
     """
+    return _OzakiOuter.apply(p_re, p_im, b_re, b_im, c_re, c_im,
+                             precision_bits)
+
+
+class _OzakiOuter(torch.autograd.Function):
+    r"""The factored product with the JAX package's custom VJP
+    (``_ozaki_c_outer_bwd``): for the cotangent g of P @ D,
+
+        dP = g D^H,  dD = P^H g,
+        dB[k, j] = sum_c dD[k, (j c)] conj C[k, c],
+        dC[k, c] = sum_j dD[k, (j c)] conj B[k, j],
+
+    as complex128 ``torch.matmul``; P, B and C are saved, D is not."""
+
+    @staticmethod
+    def forward(ctx, p_re, p_im, b_re, b_im, c_re, c_im, precision_bits):
+        ctx.save_for_backward(p_re, p_im, b_re, b_im, c_re, c_im)
+        return _ozaki_outer_forward(p_re, p_im, b_re, b_im, c_re, c_im,
+                                    precision_bits)
+
+    @staticmethod
+    def backward(ctx, g_re, g_im):
+        p_re, p_im, b_re, b_im, c_re, c_im = ctx.saved_tensors
+        cplx = config.COMPLEX
+        b = torch.complex(b_re, b_im).to(cplx)
+        c = torch.complex(c_re, c_im).to(cplx)
+        p = torch.complex(p_re.to(config.REAL), p_im.to(config.REAL))
+        g = torch.complex(g_re, g_im).to(cplx)
+        J, Cc = b.shape[-1], c.shape[-1]
+        d = (b[..., :, None] * c[..., None, :]).reshape(*b.shape[:-1], J * Cc)
+        dp = g @ d.mH
+        dd = (p.mH @ g).reshape(*d.shape[:-1], J, Cc)
+        db = torch.einsum('...kjc,...kc->...kj', dd, c.conj())
+        dc = torch.einsum('...kjc,...kj->...kc', dd, b.conj())
+        return (dp.real.to(p_re.dtype), dp.imag.to(p_im.dtype),
+                db.real.to(b_re.dtype), db.imag.to(b_im.dtype),
+                dc.real.to(c_re.dtype), dc.imag.to(c_im.dtype), None)
+
+
+def _ozaki_outer_forward(p_re, p_im, b_re, b_im, c_re, c_im,
+                         precision_bits: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward pass of :func:`ozaki_matmul_c_outer`."""
     K = p_re.shape[-1]
     slice_bits, n_p = _slice_params(K, precision_bits, 'int8')
     if slice_bits not in (5, 6, 7) or K <= 256:

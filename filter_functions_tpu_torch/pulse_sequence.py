@@ -11,8 +11,8 @@ explicitly.  The three caches (``_data`` / ``_frequency_data`` /
 ``_intermediates``), their invalidation when omega changes and the
 ``cleanup`` tiers follow the JAX package.
 
-The filter-function derivative and concatenation (``@``) are not
-ported yet and raise ``NotImplementedError``.
+Concatenation (``@``) is not ported yet and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -294,7 +294,7 @@ class PulseSequence:
 
     def __matmul__(self, other: 'PulseSequence') -> 'PulseSequence':
         raise NotImplementedError('Concatenation is not ported yet '
-                                  '(ROADMAP queue 1, item 6)')
+                                  '(ROADMAP queue 1, item 4)')
 
     def __imatmul__(self, other):
         raise NotImplementedError
@@ -495,7 +495,7 @@ class PulseSequence:
         """e^{i omega tau}."""
         self.omega = omega
         if not self.is_cached('total_phases'):
-            self._frequency_data['total_phases'] = numeric._cexp(
+            self._frequency_data['total_phases'] = util.cexp(
                 self.omega * self.tau)
         return self._frequency_data['total_phases']
 
@@ -679,9 +679,48 @@ class PulseSequence:
 
     def get_filter_function_derivative(self, omega, control_identifiers=None,
                                        n_oper_identifiers=None,
-                                       n_coeffs_deriv=None):
-        raise NotImplementedError('The filter-function derivative is not '
-                                  'ported yet (ROADMAP queue 1, item 5)')
+                                       n_coeffs_deriv=None) -> torch.Tensor:
+        """The analytic derivative dF_a(w)/du_h(t_g) of the fidelity
+        filter function w.r.t. the control amplitudes, (n_nops, n_dt,
+        n_ctrl, n_w) float64 for the selected noise and control
+        operators (identifier order); see
+        :func:`.gradient.calculate_derivative_of_control_matrix_from_scratch`.
+        *n_coeffs_deriv* (n_nops, n_ctrl, n_dt), in the order of the
+        selected identifiers, adds the dependence of the noise
+        sensitivities on the control amplitudes."""
+        from . import gradient
+        c_idx = util.get_indices_from_identifiers(self.c_oper_identifiers,
+                                                  control_identifiers)
+        n_idx = util.get_indices_from_identifiers(self.n_oper_identifiers,
+                                                  n_oper_identifiers)
+        if n_coeffs_deriv is not None:
+            required = (len(n_idx), len(c_idx), len(self))
+            actual = np.shape(n_coeffs_deriv)
+            if actual != required:
+                raise ValueError('Expected n_coeffs_deriv to be of shape '
+                                 f'{required}, not {actual}. Did you forget '
+                                 'to specify identifiers?')
+        self.omega = omega
+        n_idx_dev = torch.as_tensor(n_idx, device=self.device)
+        intermediates = {}
+        n_t = self._intermediates.get('n_opers_transformed')
+        if n_t is not None:
+            intermediates['n_opers_transformed'] = n_t[n_idx_dev]
+        integral = self._intermediates.get('first_order_integral')
+        if integral is not None:
+            intermediates['first_order_integral'] = integral
+
+        control_matrix = self.get_control_matrix(
+            self.omega, cache_intermediates=True)[n_idx_dev]
+        control_matrix_deriv = \
+            gradient.calculate_derivative_of_control_matrix_from_scratch(
+                self.omega, self.propagators, self.eigvals, self.eigvecs,
+                self.basis, self.t, self.dt, self.n_opers_dev[n_idx_dev],
+                self.n_coeffs[n_idx],
+                self.c_opers_dev[torch.as_tensor(c_idx, device=self.device)],
+                n_coeffs_deriv, intermediates)
+        return gradient.calculate_filter_function_derivative(
+            control_matrix, control_matrix_deriv)
 
     def propagator_at_arb_t(self, t) -> torch.Tensor:
         """Propagators Q(t) (n_t, d, d) at arbitrary times, exact for the
@@ -691,7 +730,7 @@ class PulseSequence:
         idx = np.clip(np.searchsorted(self.t, t) - 1, 0, len(self.dt) - 1)
         idx_t = torch.as_tensor(idx, device=self.device)
         eigvecs = self.eigvecs[idx_t]
-        phases = numeric._cexp(self._on_device(self.t[idx] - t)[:, None]
+        phases = util.cexp(self._on_device(self.t[idx] - t)[:, None]
                                * self.eigvals[idx_t])
         u_curr = (eigvecs * phases[:, None, :]) @ eigvecs.mH
         return u_curr @ self.propagators[idx_t]

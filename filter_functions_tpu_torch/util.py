@@ -24,7 +24,7 @@ from . import config
 __all__ = ['paulis', 'abs2', 'all_array_equal', 'dot_HS',
            'get_sample_frequencies', 'hash_array_along_axis', 'mdot', 'adot',
            'oper_equiv', 'remove_float_errors', 'tensor', 'integrate',
-           'CalculationError', 'parse_optional_parameters',
+           'cexp', 'cexpm1', 'CalculationError', 'parse_optional_parameters',
            'parse_operators', 'parse_spectrum', 'is_sequence_like',
            'get_indices_from_identifiers', 'progressbar',
            'progressbar_range']
@@ -49,6 +49,20 @@ def abs2(x):
     if is_complex:
         return x.real**2 + x.imag**2
     return x * x
+
+
+def cexp(x) -> torch.Tensor:
+    """e^{ix} of a real tensor (or array-like), complex128."""
+    x = torch.as_tensor(x, dtype=config.REAL)
+    return torch.complex(torch.cos(x), torch.sin(x))
+
+
+def cexpm1(x) -> torch.Tensor:
+    """e^{ix} - 1 = -2 sin^2(x/2) + i sin(x) of a real tensor, complex128;
+    the half-angle form keeps full relative precision for small |x|."""
+    x = torch.as_tensor(x, dtype=config.REAL)
+    s = torch.sin(x / 2)
+    return torch.complex(-2.0 * s * s, torch.sin(x))
 
 
 def _host(x) -> np.ndarray:

@@ -135,7 +135,7 @@ def second_order(device, card, log):
     tg, td = numeric._cumulant_trace_combos_dev(basis, device)
 
     def prep(st):
-        st['eigvals'], st['terms'] = functional._prep(
+        st['eigvals'], st['terms'], _ = functional._prep(
             p, p.c_coeffs, p.n_coeffs, p.dt, omega)
 
     def step(st):

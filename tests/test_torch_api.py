@@ -27,9 +27,9 @@ def test_shared_top_level_names_are_counterparts():
     does (the functional one stays fft.functional.infidelity)."""
     shared = [name for name in ff.__all__ if hasattr(fft, name)]
     assert {'Basis', 'PulseSequence', 'error_transfer_matrix',
-            'infidelity', 'liouville_representation', 'basis', 'config',
-            'functional', 'numeric', 'pulse_sequence', 'superoperator',
-            'types', 'util'} <= set(shared)
+            'infidelity', 'infidelity_derivative', 'liouville_representation',
+            'basis', 'config', 'functional', 'gradient', 'numeric',
+            'pulse_sequence', 'superoperator', 'types', 'util'} <= set(shared)
     for name in shared:
         want, got = getattr(ff, name), getattr(fft, name)
         if inspect.ismodule(want):
@@ -40,7 +40,30 @@ def test_shared_top_level_names_are_counterparts():
     assert fft.infidelity is fft.numeric.infidelity
     assert fft.functional.infidelity is not fft.infidelity
     assert fft.error_transfer_matrix is fft.numeric.error_transfer_matrix
+    assert fft.infidelity_derivative is fft.gradient.infidelity_derivative
+    assert set(ff.gradient.__all__) == set(fft.gradient.__all__)
     assert all(hasattr(fft, name) for name in fft.__all__)
+
+
+def test_cexp_cexpm1_and_basis_sparse_match_jax():
+    """util.cexp and util.cexpm1 (in util.__all__) return complex128
+    tensors within 1e-15 of the JAX package's, cexpm1 keeping its
+    relative precision at small arguments; Basis.sparse is the dense
+    host array, equal to the JAX package's."""
+    x = np.concatenate([np.linspace(-7, 7, 41), [1e-12, -3e-9, 0.0]])
+    for name in ('cexp', 'cexpm1'):
+        assert name in fft.util.__all__
+        got = getattr(fft.util, name)(x)
+        want = getattr(ff.util, name)(x)
+        assert got.dtype == torch.complex128
+        np.testing.assert_allclose(got.numpy(), want.re + 1j * want.im,
+                                   rtol=1e-15, atol=1e-15)
+    tiny = fft.util.cexpm1(torch.tensor([1e-12], dtype=torch.float64))
+    np.testing.assert_allclose(tiny.real.numpy(), [-5e-25], rtol=1e-15)
+    for d in (2, 3):
+        got, want = fft.Basis.ggm(d).sparse, ff.Basis.ggm(d).sparse
+        assert isinstance(got, np.ndarray)
+        np.testing.assert_array_equal(got, want)
 
 
 def test_functional_names_are_counterparts():
