@@ -9,10 +9,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 2. build: compiles the CUDA kernel from ``csrc/`` and prints nvcc's
    register / shared-memory / spill report.
 3. kernel: ``dword_digits`` on the card against its plain PyTorch
-   version on the card, bit-exact, at the four shapes of
+   version on the card, bit-exact, at the six shapes of
    ``KERNEL_SHAPES``: K, J, C, n_d = 512, 3, 128, 4; the flagship's 3328,
    18, 256, 5 (batch 2, as the main path calls it); a ragged K = 333
-   (byte stores); K = 20000, above the kernel's register cap.  Times the
+   (byte stores); K = 20000, above the kernel's register cap; the
+   flagship at batch 1 (the object path's call, phases 6, 7a, 9a, 9b);
+   K = 13312 at batch 1 (phase 9c's 52-segment pulse from scratch: the
+   instance that keeps two runs of words a thread).  Times the
    flagship call of both beside its memory bound and the card's name and
    power limit.
 4. main path: ``functional.batched_infidelity`` on the 4-qubit QFT pulse
@@ -76,10 +79,49 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       5 in ms per pulse; row 0 within 1e-12 absolute of the analytic
       derivative summed over the noise operators.
 
+9. concatenation in time (``fft.concatenate``, ``concatenate_periodic``,
+   ``a @ b``: the composed pulse's filter function from the cached control
+   matrices of its parts), with the kernel's launches counted per part.
+   a. The live flagship: ``models.qft.qft_pulse(4)`` on the card equals
+      ``qft_pulse_sequence(4)``'s five arrays exactly.  Its 9 gates with
+      filter functions cached at phase 4's 1000 frequencies compose with
+      0 kernel launches (no gate is deep); the composed control matrix is
+      within 1e-12 (of its largest entry) of the native from-scratch one,
+      its infidelity within 1e-10 of phase 6's, and the default-route
+      from-scratch call launches the kernel once.  Times the cold
+      composition (build the gates, cache, concatenate), median of 5.
+   b. A periodic train of the flagship, its control matrix cached through
+      the default route (1 launch): at 16 repeats ``concatenate_periodic``
+      equals ``concatenate([qft] * 16)``, is within 1e-11 of K5 on 16
+      copies and within 1e-5 (the deep route's operand quantization) of
+      the 208-segment pulse from scratch; at 10^4 repeats the closed form
+      is finite with a total propagator unitary to 1e-10; timed, with its
+      peak memory.
+   c. Four distinct flagship-sized gates (rows 0-3 of phase 4's batch as
+      ``PulseSequence``s), control matrices cached through the default
+      route (4 launches), concatenated with the pulse-correlation filter
+      function: it sums to the total one; the total control matrix is
+      within 1e-5 of the 52-segment pulse's from scratch (default route,
+      one launch per segment chunk) and, from natively cached parts,
+      within 1e-12 of the CPU's; timed.
+   d. bench.py's small-d configurations at their published sizes, parity
+      and one timing each: ``concat_train`` (10^4 cached NOT pulses, 400
+      frequencies, against ``concatenate_periodic``, and the general path
+      on two alternating objects), ``clifford_train`` (24 distinct pulses
+      of 1-3 segments at 10^4 positions, ``default_rng(11)``, against the
+      CPU), ``dd`` (CPMG-16 and UDD-16 at 400 frequencies against the
+      closed forms; batch 1024), ``rb`` (1024 sequences of 20 Cliffords
+      plus recovery at 301 frequencies, ``default_rng(0)``, against
+      ``rb_pulse`` by ``concatenate`` on four of them).
+   e. Second order: rows 0 and 1 of phase 7b's inputs as objects,
+      concatenated with ``calc_second_order_FF``: within 1e-12 of the
+      16-segment pulse's second-order filter function from scratch.
+
 Before the last line come the card's label and the kernels' JSON
 record, in that order; the last line is
 ``{"ok": true, "device": {...}}``.
 """
+import copy
 import json
 import statistics
 import subprocess
@@ -90,9 +132,9 @@ import numpy as np
 import torch
 
 import filter_functions_tpu_torch as fft
-from filter_functions_tpu_torch import (config, functional, numeric,
-                                        superoperator)
-from filter_functions_tpu_torch.models import qft
+from filter_functions_tpu_torch import (analytic, config, functional,
+                                        numeric, superoperator)
+from filter_functions_tpu_torch.models import dd, qft, rb
 from filter_functions_tpu_torch.ops import _build, dword
 
 N_OMEGA = 1000
@@ -103,7 +145,9 @@ N_TIMED = 5
 KERNEL_SHAPES = {'small': (512, 3, 128, 4, 7, 1),
                  'flagship': (3328, 18, 256, 5, 7, CHUNK),
                  'ragged': (333, 2, 9, 5, 7, 3),
-                 'above_cap': (20000, 2, 16, 5, 7, 1)}
+                 'above_cap': (20000, 2, 16, 5, 7, 1),
+                 'flagship_one': (3328, 18, 256, 5, 7, 1),
+                 'deep_train': (13312, 18, 256, 5, 7, 1)}
 #: The H100 SXM's device-memory rate (NVIDIA's data sheet), bytes/s.
 #: There is no published int32 rate, so a kernel's bound here is its
 #: memory floor.
@@ -152,6 +196,33 @@ ANALYTIC_PARITY = 1e-9
 GRAD_CONFIG_PARITY = 1e-12
 #: config_grad's shapes: (segments, frequencies, batch).
 GRAD_SHAPE = (8, 200, 256)
+#: A composed control matrix or filter function against the from-scratch
+#: one, both native complex128, relative to the largest entry.
+CONCAT_PARITY = 1e-12
+#: The periodic closed form against K5 on copies: the same atomic matrix
+#: through two sums of 16 terms.
+PERIODIC_PARITY = 1e-11
+#: Control matrices that went through the deep factored route against
+#: native ones, relative to the largest entry: the route quantizes its
+#: operands to 2^-21 (numeric._deep_quant_ratio), and a sum over parts
+#: keeps that level.
+OZAKI_CTRL_PARITY = 1e-5
+#: Unitarity of the total propagator of a 10^4-fold train.
+UNITARITY = 1e-10
+#: Repeats of the flagship's periodic trains (9b).
+TRAIN_REPEATS = (16, 10_000)
+#: The long d = 2 trains (9d): the general path against the closed form,
+#: and the card against the CPU.
+LONG_TRAIN_PARITY = 1e-8
+CLIFFORD_TRAIN_PARITY = 1e-9
+#: dd's filter functions against the closed forms, absolute, as the JAX
+#: package's tests hold them.
+DD_PARITY = 1e-10
+#: (pulses, frequencies) of concat_train and clifford_train; (order,
+#: frequencies, batch) of dd; (sequences, length, frequencies) of rb.
+TRAIN_SHAPE = (10_000, 400)
+DD_SHAPE = (16, 400, 1024)
+RB_SHAPE = (1024, 20, 301)
 
 
 def _card_label() -> str:
@@ -336,14 +407,23 @@ def main() -> int:
     analytic_flagship(device, card)
     grad_config(device, card)
 
+    # 9. concatenation in time
+    concat_launches = {
+        **concat_flagship(device, card, object_infid),
+        **concat_periodic(device, card),
+        **concat_distinct(device, card, batched),
+        'concatenate (d = 2 trains, dd, rb)': concat_small(device, card),
+        'concatenate (second order)': concat_second_order(device, card)}
+
     print(card)
     print(json.dumps({'kernels': [{
         'name': 'dword_digits', 'route': 'cuda',
         'source': 'filter_functions_tpu_torch/csrc/dword_digits.cu',
         'replaces': 'filter_functions_tpu/ops/dword_pallas.py:198',
         'launches': launches + object_launches + etm_launches
-        + grad_launches,
+        + grad_launches + sum(concat_launches.values()),
         'launches_by_path': {
+            **concat_launches,
             'functional.batched_infidelity': launches,
             'numeric.infidelity (PulseSequence)': object_launches,
             'numeric.error_transfer_matrix (PulseSequence)': etm_launches,
@@ -705,6 +785,397 @@ def grad_config(device, card) -> None:
     ms = _median_ms(lambda: _infidelity_grad(p, spectrum, omega), N_TIMED)
     print(f'timing: grad config autograd {ms / batch:.4f} ms/pulse (median '
           f'of {N_TIMED}, batch {batch}) [{card}]')
+
+
+def _omega_spectrum(device):
+    omega = torch.from_numpy(np.geomspace(1e-2, 1e2, N_OMEGA)).to(device)
+    return omega, 1e-4 / omega
+
+
+def _native_control_matrix(pulse, omega, **kw):
+    """The from-scratch control matrix of *pulse* on the native route."""
+    return numeric.calculate_control_matrix_from_scratch(
+        pulse.eigvals, pulse.eigvecs, pulse.propagators, omega, pulse.basis,
+        pulse.n_opers_dev, pulse.n_coeffs, pulse.dt, t=pulse.t,
+        contract='native', **kw)
+
+
+def _check(name, value, bound):
+    if not value <= bound:
+        raise AssertionError(f'{name}: {value:.3e} exceeds {bound}')
+
+
+def concat_flagship(device, card, object_infid) -> dict:
+    """Phase 9a: the flagship built live and composed from its gates;
+    returns the kernel's launches by what made them."""
+    omega, spectrum = _omega_spectrum(device)
+    live = qft.qft_pulse(4, device=device)
+    named = qft.qft_pulse_sequence(4, device=device)
+    diff = max(np.abs(getattr(live, f) - getattr(named, f)).max()
+               for f in ('c_opers', 'c_coeffs', 'n_opers', 'n_coeffs', 'dt'))
+    print(f'concat flagship: live qft_pulse(4) on {live.device} against '
+          f'qft_pulse_sequence(4), five arrays: max |diff| {diff} '
+          f'(tolerance 0); {len(live)} segments, identifiers '
+          f'{live.c_oper_identifiers[0]} ... {live.c_oper_identifiers[-1]}')
+    if diff != 0:
+        raise AssertionError('the live flagship is not the flagship')
+
+    def compose():
+        gates = qft._qft_atomic_pulses(4, device=device)
+        for gate in gates:
+            gate.cache_filter_function(omega)
+        return fft.concatenate(gates)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    dword.launches = 0
+    composed = compose()
+    torch.cuda.synchronize()
+    compose_launches = dword.launches
+    peak = torch.cuda.max_memory_allocated(device)
+    if not (composed.is_cached('control_matrix') and composed == live):
+        raise AssertionError('the composed flagship has no control matrix '
+                             'or is another pulse')
+    got = composed.get_control_matrix(omega)
+    to_native = _rel(got, _native_control_matrix(live, omega))
+    infid = fft.infidelity(composed, spectrum, omega)
+    to_object = (infid - object_infid).abs().max().item()
+    dword.launches = 0
+    scratch = live.get_control_matrix(omega)
+    torch.cuda.synchronize()
+    launches = dword.launches
+    print(f'concat flagship: 9 gates cached and concatenated with '
+          f'{compose_launches} dword_digits launches; composed control '
+          f'matrix against native from scratch {to_native:.3e} of the '
+          f'largest entry (bound {CONCAT_PARITY}), against the default '
+          f'route from scratch ({launches} launch) '
+          f'{_rel(got, scratch):.3e} (bound {OZAKI_CTRL_PARITY}); '
+          f'infidelity against phase 6 max |diff| {to_object:.6e} (bound '
+          f'{PARITY}), sum {infid.sum().item():.12e}')
+    if compose_launches != 0 or launches != 1:
+        raise AssertionError(f'launches: composition {compose_launches} '
+                             f'(expected 0), from scratch {launches} '
+                             '(expected 1)')
+    _check('composed against native', to_native, CONCAT_PARITY)
+    _check('composed against the default route', _rel(got, scratch),
+           OZAKI_CTRL_PARITY)
+    _check('composed infidelity against phase 6', to_object, PARITY)
+    print(f'timing: concat flagship {_median_ms(compose, N_TIMED):.4f} ms '
+          f'per cold composition (build 9 gates, cache, concatenate; '
+          f'median of {N_TIMED}); peak device memory of one composition '
+          f'{peak / 2**30:.2f} GiB [{card}]')
+    return {'concatenate (live flagship, 9 gates)': compose_launches,
+            'from scratch, default route (live flagship)': launches}
+
+
+def concat_periodic(device, card) -> dict:
+    """Phase 9b: periodic trains of the flagship; returns the kernel's
+    launches by what made them."""
+    omega, _ = _omega_spectrum(device)
+    pulse = qft.qft_pulse_sequence(4, device=device)
+    dword.launches = 0
+    pulse.cache_filter_function(omega)
+    torch.cuda.synchronize()
+    launches = dword.launches
+    if launches != 1:
+        raise AssertionError(f'caching the flagship launched {launches} '
+                             'kernels, not 1')
+    short, long = TRAIN_REPEATS
+    dword.launches = 0
+    periodic = fft.concatenate_periodic(pulse, short)
+    uniform = fft.concatenate([pulse] * short)
+    copies = fft.concatenate([copy.copy(pulse) for _ in range(short)])
+    got = periodic.get_control_matrix(omega)
+    if not torch.equal(got, uniform.get_control_matrix(omega)):
+        raise AssertionError('concatenate([p] * R) is not the closed form')
+    to_copies = _rel(got, copies.get_control_matrix(omega))
+    torch.cuda.synchronize()
+    train_launches = dword.launches
+    if train_launches != 0:
+        raise AssertionError(f'composing the trains launched '
+                             f'{train_launches} kernels, not 0')
+    dword.launches = 0
+    scratch = fft.concatenate_without_filter_function([pulse] * short)
+    to_scratch = _rel(got, scratch.get_control_matrix(omega))
+    torch.cuda.synchronize()
+    scratch_launches = dword.launches
+    print(f'concat periodic: flagship cached with {launches} launch; '
+          f'{short} repeats ({len(periodic)} segments) composed with '
+          f'{train_launches} launches: equal to '
+          f'concatenate([qft] * {short}); against K5 on {short} copies '
+          f'{to_copies:.3e} (bound {PERIODIC_PARITY}); against the pulse '
+          f'from scratch (K = {len(periodic) * 256}, {scratch_launches} '
+          f'launches) {to_scratch:.3e} of the largest entry (bound '
+          f'{OZAKI_CTRL_PARITY})')
+    _check('periodic against K5 on copies', to_copies, PERIODIC_PARITY)
+    _check('periodic against from scratch', to_scratch, OZAKI_CTRL_PARITY)
+    del uniform, copies, scratch, got
+
+    torch.cuda.reset_peak_memory_stats(device)
+    dword.launches = 0
+    train = fft.concatenate_periodic(pulse, long)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    train_launches += dword.launches
+    filter_function = train.get_filter_function(omega)
+    prop = train.total_propagator
+    unitarity = (prop @ prop.mH - torch.eye(16, device=device)).abs().max() \
+        .item()
+    print(f'concat periodic: {long} repeats ({len(train)} segments): filter '
+          f'function {tuple(filter_function.shape)} finite '
+          f'{bool(torch.isfinite(filter_function).all())}, max '
+          f'{filter_function.abs().max().item():.6e}; total propagator '
+          f'unitary to {unitarity:.3e} (bound {UNITARITY})')
+    if not torch.isfinite(filter_function).all():
+        raise AssertionError('the long train is not finite')
+    _check('unitarity of the long train', unitarity, UNITARITY)
+    ms = _median_ms(lambda: fft.concatenate_periodic(pulse, long), N_TIMED)
+    print(f'timing: concat periodic {ms:.4f} ms per train of {long} '
+          f'flagship pulses (closed form, median of {N_TIMED}); peak device '
+          f'memory {peak / 2**30:.2f} GiB [{card}]')
+    if train_launches != 0:
+        raise AssertionError(f'the closed form launched {train_launches} '
+                             'kernels, not 0')
+    return {'cache_filter_function (flagship, the train\'s part)': launches,
+            'concatenate_periodic / concatenate (flagship trains)':
+                train_launches,
+            'from scratch (208-segment train, native above the deep regime)':
+                scratch_launches}
+
+
+def concat_distinct(device, card, batched) -> dict:
+    """Phase 9c: four distinct flagship-sized gates concatenated with
+    their pulse correlations; returns the kernel's launches by what made
+    them."""
+    omega, _ = _omega_spectrum(device)
+    base = qft.qft_pulse_sequence(4, device=device)
+
+    def parts(dev, scales=batched.c_coeffs[:4].cpu().numpy()):
+        return [fft.PulseSequence.from_arrays(
+            base.c_opers, base.c_oper_identifiers, c_coeffs, base.n_opers,
+            base.n_oper_identifiers, base.n_coeffs, base.dt, device=dev)
+            for c_coeffs in scales]
+
+    gates = parts(device)
+    dword.launches = 0
+    for gate in gates:
+        gate.cache_control_matrix(omega)
+    torch.cuda.synchronize()
+    part_launches = dword.launches
+    dword.launches = 0
+    train = fft.concatenate(gates, calc_pulse_correlation_FF=True)
+    f_pc = train.get_pulse_correlation_filter_function()
+    total = train.get_filter_function(omega)
+    sums = _rel(f_pc.sum((0, 1)), total)
+    torch.cuda.synchronize()
+    compose_launches = dword.launches
+    dword.launches = 0
+    scratch = fft.concatenate_without_filter_function(gates)
+    to_scratch = _rel(train.get_control_matrix(omega),
+                      scratch.get_control_matrix(omega))
+    torch.cuda.synchronize()
+    scratch_launches = dword.launches
+
+    def native(dev):
+        pulses = parts(dev)
+        for p in pulses:
+            p.cache_control_matrix(omega.to(dev),
+                                   _native_control_matrix(p, omega.to(dev)))
+        return fft.concatenate(pulses).get_control_matrix(omega.to(dev))
+    dword.launches = 0
+    to_cpu = _rel(native(device).cpu(), native('cpu'))
+    native_launches = dword.launches
+    print(f'concat distinct: 4 flagship-sized gates cached with '
+          f'{part_launches} dword_digits launches and concatenated with '
+          f'{compose_launches}; pulse-correlation filter '
+          f'function {tuple(f_pc.shape)} sums to the total within '
+          f'{sums:.3e} (bound {CONCAT_PARITY}); total control matrix '
+          f'against the {len(train)}-segment pulse from scratch '
+          f'({scratch_launches} launches) {to_scratch:.3e} of the largest '
+          f'entry (bound {OZAKI_CTRL_PARITY}); from natively cached parts '
+          f'against the CPU {to_cpu:.3e} (bound {CONCAT_PARITY})')
+    if (part_launches != 4 or compose_launches != 0 or native_launches != 0
+            or scratch_launches < 1):
+        raise AssertionError(f'launches: parts {part_launches} (expected 4)'
+                             f', composition {compose_launches} and '
+                             f'natively cached parts {native_launches} '
+                             f'(expected 0), from scratch {scratch_launches} '
+                             '(expected one per segment chunk)')
+    _check('pulse correlations sum to the total', sums, CONCAT_PARITY)
+    _check('K5 against from scratch', to_scratch, OZAKI_CTRL_PARITY)
+    _check('K5 on the card against the CPU', to_cpu, CONCAT_PARITY)
+    dword.launches = 0
+    ms = _median_ms(lambda: fft.concatenate(
+        gates, calc_pulse_correlation_FF=True), N_TIMED)
+    compose_launches += dword.launches
+    print(f'timing: concat distinct {ms:.4f} ms per concatenation of 4 '
+          f'cached gates with pulse correlations (median of {N_TIMED}, '
+          f'{dword.launches} launches) [{card}]')
+    if compose_launches != 0:
+        raise AssertionError('the timed concatenations launched the kernel')
+    return {'cache_control_matrix (4 flagship-sized gates)': part_launches,
+            'concatenate (4 flagship-sized gates)': compose_launches,
+            'from scratch, default route (52-segment train)':
+                scratch_launches}
+
+
+def clifford_train(device):
+    """bench.py's config_clifford_train: 24 distinct pulses of 1-3
+    segments with cached filter functions, and the train of 10^4
+    positions drawn from them (default_rng(11)); returns (train,
+    omega)."""
+    n_pulses, n_omega = TRAIN_SHAPE
+    X, Y, Z = fft.util.paulis[1:]
+    omega = np.geomspace(1e-2, 1e2, n_omega)
+    rng = np.random.default_rng(11)
+    seg_counts = 1 + rng.integers(0, 3, 24)
+    base_coeffs = [np.pi * rng.standard_normal((2, n)) for n in seg_counts]
+    base_dt = [0.5 + rng.random(n) for n in seg_counts]
+    train_idx = rng.integers(0, 24, n_pulses)
+    distinct = []
+    for c, dt in zip(base_coeffs, base_dt):
+        p = fft.PulseSequence([[X / 2, c[0], 'X'], [Y / 2, c[1], 'Y']],
+                              [[Z / 2, np.ones(len(dt)), 'Z']], dt,
+                              device=device)
+        p.cache_filter_function(omega)
+        distinct.append(p)
+    return [distinct[i] for i in train_idx], omega
+
+
+def concat_small(device, card) -> int:
+    """Phase 9d: bench.py's small-d configurations; returns the kernel's
+    launches (none of these pulses is deep)."""
+    dword.launches = 0
+    X, Y, Z = fft.util.paulis[1:]
+
+    # concat_train
+    n_pulses, n_omega = TRAIN_SHAPE
+    omega = np.geomspace(1e-2, 1e2, n_omega)
+    not_pulse = fft.PulseSequence([[X / 2, [np.pi], 'X']],
+                                  [[Z / 2, [1], 'Z']], [1], device=device)
+    not_pulse.cache_filter_function(omega)
+    periodic = fft.concatenate_periodic(not_pulse, n_pulses)
+    uniform = fft.concatenate([not_pulse] * n_pulses)
+    pair = [not_pulse, copy.copy(not_pulse)] * (n_pulses // 2)
+    general = fft.concatenate(pair)
+    f_per = periodic.get_filter_function(omega)
+    parity = _rel(uniform.get_filter_function(omega), f_per)
+    parity_general = _rel(general.get_filter_function(omega), f_per)
+    print(f'concat train: {n_pulses} cached NOT pulses, {n_omega} '
+          f'frequencies: concatenate([p] * n) against concatenate_periodic '
+          f'{parity:.3e}; the general path on two alternating objects '
+          f'{parity_general:.3e} of the largest entry (bound '
+          f'{LONG_TRAIN_PARITY})')
+    _check('concat_train, closed form', parity, LONG_TRAIN_PARITY)
+    _check('concat_train, general path', parity_general, LONG_TRAIN_PARITY)
+    ms = _median_ms(lambda: fft.concatenate([not_pulse] * n_pulses), N_TIMED)
+    ms_general = _median_ms(lambda: fft.concatenate(pair), N_TIMED)
+    print(f'timing: concat train {ms:.4f} ms per train (closed form), '
+          f'{ms_general:.4f} ms on the general path (median of {N_TIMED}) '
+          f'[{card}]')
+
+    # clifford_train
+    train, omega = clifford_train(device)
+    big = fft.concatenate(train)
+    cpu_train, _ = clifford_train('cpu')
+    to_cpu = _rel(big.get_filter_function(omega).cpu(),
+                  fft.concatenate(cpu_train).get_filter_function(omega))
+    print(f'clifford train: 24 distinct cached pulses at {len(train)} '
+          f'positions ({len(big)} segments): filter function against the '
+          f'CPU {to_cpu:.3e} of the largest entry (bound '
+          f'{CLIFFORD_TRAIN_PARITY})')
+    _check('clifford_train against the CPU', to_cpu, CLIFFORD_TRAIN_PARITY)
+    ms = _median_ms(lambda: fft.concatenate(train), N_TIMED)
+    print(f'timing: clifford train {ms:.4f} ms per train (median of '
+          f'{N_TIMED}) [{card}]')
+
+    # dd
+    n, n_omega, batch = DD_SHAPE
+    tau = np.pi
+    omega = np.logspace(0, 2, n_omega)
+    for dd_type, closed in (('cpmg', analytic.CPMG), ('udd', analytic.UDD)):
+        pulse = dd.dd_pulse(n, tau=tau, tau_pi=1e-9, dd_type=dd_type,
+                            device=device)
+        got = pulse.get_filter_function(omega)[0, 0].real.cpu().numpy()
+        err = np.abs(got - closed(omega * tau, n) / omega**2).max()
+        print(f'dd: {dd_type.upper()}-{n} at {n_omega} frequencies against '
+              f'the closed form: max |FF - closed form| {err:.3e} (bound '
+              f'{DD_PARITY})')
+        _check(f'dd {dd_type}', err, DD_PARITY)
+    base = functional.make_pulse_arrays(
+        dd.dd_pulse(n, tau=tau, tau_pi=1e-9, device=device))
+    scales = torch.from_numpy(
+        1 + 0.1 * np.random.default_rng(0).random(batch)).to(device)
+    p = base._replace(c_coeffs=base.c_coeffs / scales[:, None, None],
+                      n_coeffs=base.n_coeffs.expand(batch, -1, -1),
+                      dt=base.dt * scales[:, None])
+    omega_dev = torch.from_numpy(omega).to(device)
+    ms = _median_ms(lambda: functional.fidelity_filter_function(p, omega_dev),
+                    N_TIMED)
+    print(f'timing: dd {ms / batch:.4f} ms/pulse (CPMG-{n} at {batch} '
+          f'durations, filter function at {n_omega} frequencies, median of '
+          f'{N_TIMED}) [{card}]')
+
+    # rb
+    n_seq, length, n_omega = RB_SHAPE
+    rng = np.random.default_rng(0)
+    seqs = []
+    for _ in range(n_seq):
+        idx, rec = rb.sample_sequence(length, rng)
+        seqs.append(idx + [rec])
+    omega = np.geomspace(1e-2, 1e2, n_omega)
+    spectrum = 1e-3 / omega
+    got = rb.batched_rb_infidelities(seqs, omega, spectrum, device=device)
+    pulses = rb.clifford_pulses(omega=omega, device=device)
+    want = torch.stack([fft.infidelity(
+        rb.rb_pulse(s[:-1], s[-1], pulses), spectrum, omega)[0]
+        for s in seqs[:4]])
+    err = ((got[:4] - want).abs() / want).max().item()
+    print(f'rb: {n_seq} sequences of {length} Cliffords plus recovery, '
+          f'{n_omega} frequencies: batched against rb_pulse by concatenate '
+          f'on 4 sequences {err:.3e} relative (bound {CONCAT_PARITY}); mean '
+          f'infidelity {got.mean().item():.6e}')
+    if not torch.isfinite(got).all():
+        raise AssertionError('rb: infidelities not finite')
+    _check('rb against concatenate', err, CONCAT_PARITY)
+    ms = _median_ms(lambda: rb.batched_rb_infidelities(
+        seqs, omega, spectrum, device=device), N_TIMED)
+    print(f'timing: rb {ms / n_seq:.6f} ms/sequence ({ms:.4f} ms per call of '
+          f'{n_seq}, median of {N_TIMED}) [{card}]')
+    return dword.launches
+
+
+def concat_second_order(device, card) -> int:
+    """Phase 9e: K11 on two pulses at config_second_order's shapes;
+    returns the kernel's launches (d = 4 is not deep)."""
+    _, host, basis, omega, _ = second_order_inputs(device)
+    dword.launches = 0
+    pulses = [fft.PulseSequence.from_arrays(
+        host['c_opers'], ['A', 'B'], host['c_coeffs'][b], host['n_opers'],
+        ['a', 'b'], host['n_coeffs'][b], host['dt'][b], basis=basis,
+        device=device) for b in (0, 1)]
+
+    def compose():
+        for p in pulses:
+            p.cleanup('all')
+            p.cache_filter_function(omega, cache_intermediates=True)
+            p.cache_filter_function(omega, order=2, cache_intermediates=True)
+        return fft.concatenate(pulses, calc_second_order_FF=True)
+
+    train = compose()
+    got = train.get_filter_function(omega, order=2)
+    scratch = fft.concatenate_without_filter_function(pulses)
+    err = _rel(got, scratch.get_filter_function(omega, order=2))
+    print(f'concat second order: 2 pulses of 8 segments, d = 4, '
+          f'{len(omega)} frequencies: K11 {tuple(got.shape)} against the '
+          f'{len(train)}-segment pulse from scratch {err:.3e} of the '
+          f'largest entry (bound {CONCAT_PARITY})')
+    if not torch.isfinite(got).all():
+        raise AssertionError('K11 is not finite')
+    _check('K11 against K10', err, CONCAT_PARITY)
+    print(f'timing: concat second order {_median_ms(compose, N_TIMED):.4f} '
+          f'ms per cold composition (both parts\' second-order caches, then '
+          f'K11; median of {N_TIMED}) [{card}]')
+    return dword.launches
 
 
 if __name__ == '__main__':

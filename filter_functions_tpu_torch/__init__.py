@@ -1,8 +1,10 @@
 """PyTorch port of :mod:`filter_functions_tpu` for CUDA GPUs.
 
 The object API -- :class:`PulseSequence`, :class:`Basis`, control
-matrices, first- and second-order filter functions, :func:`infidelity`
-and :func:`error_transfer_matrix` -- and the functional path
+matrices, first- and second-order filter functions, :func:`infidelity`,
+:func:`error_transfer_matrix`, and the composition of pulses in time
+with reuse of their cached control matrices (:func:`concatenate`,
+:func:`concatenate_periodic`, ``a @ b``) -- and the functional path
 (:mod:`.functional`: the batched infidelity of the 4-qubit QFT pulse,
 the batched error transfer matrix) run through the same pipeline as the
 JAX package: diagonalize, per-segment step terms, the control-matrix
@@ -18,19 +20,24 @@ Complex values are ``torch.complex128`` and reals ``torch.float64``;
 every computed value lives on an explicit device.  The package imports
 ``torch`` and never ``jax``.
 """
-from . import (basis, config, convert, functional, gradient, numeric,
-               pulse_sequence, superoperator, types, util)
+from . import (analytic, basis, config, convert, functional, gradient,
+               models, numeric, pulse_sequence, sequencing, superoperator,
+               types, util)
 from .basis import Basis
 from .functional import PulseArrays, batched_infidelity, control_matrix
 from .gradient import infidelity_derivative
 from .models.qft import qft_pulse_arrays, qft_pulse_sequence
 from .numeric import error_transfer_matrix, infidelity
-from .pulse_sequence import PulseSequence
+from .pulse_sequence import (PulseSequence, concatenate,
+                             concatenate_periodic,
+                             concatenate_without_filter_function)
 from .superoperator import liouville_representation
 
 __all__ = ['Basis', 'PulseArrays', 'PulseSequence', 'batched_infidelity',
-           'control_matrix', 'error_transfer_matrix', 'infidelity',
-           'infidelity_derivative', 'liouville_representation',
-           'qft_pulse_arrays', 'qft_pulse_sequence', 'basis', 'config',
-           'convert', 'functional', 'gradient', 'numeric', 'pulse_sequence',
-           'superoperator', 'types', 'util']
+           'concatenate', 'concatenate_periodic',
+           'concatenate_without_filter_function', 'control_matrix',
+           'error_transfer_matrix', 'infidelity', 'infidelity_derivative',
+           'liouville_representation', 'qft_pulse_arrays',
+           'qft_pulse_sequence', 'analytic', 'basis', 'config', 'convert',
+           'functional', 'gradient', 'models', 'numeric', 'pulse_sequence',
+           'sequencing', 'superoperator', 'types', 'util']

@@ -1,8 +1,10 @@
 r"""Numerical kernels (counterparts of ``filter_functions_tpu.numeric``):
 diagonalization (K0), the second-order integral lattice (K2), the
 control matrix from scratch (K4: per-segment step terms and their
-contraction), the filter functions (K8, K9), the second-order filter
-function from scratch (K10), the integrand (K12), decay amplitudes and
+contraction), from atomic pulses (K5) and of a periodic train (K6), the
+noise operators (K7), the filter functions (K8, K9), the second-order
+filter function from scratch (K10) and from atomic pulses (K11), the
+integrand (K12), decay amplitudes and
 frequency shifts (K13, K14), the cumulant function (K15), the error
 transfer matrix (K16) and the infidelity (K17).
 
@@ -17,7 +19,8 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import (Any, Dict, Mapping, Optional, Sequence, Tuple,
+                    Union)
 from warnings import warn
 
 import numpy as np
@@ -42,6 +45,11 @@ def _perm_tail(x: torch.Tensor, *order: int) -> torch.Tensor:
 #: in the eigendecomposition's backward (the JAX package's
 #: ``cplx._eigh_jvp``).
 _DEGENERATE_GAP = 1e-12
+#: Matrices per ``torch.linalg.eigh`` call: on a CUDA device cuSOLVER's
+#: batched solver refuses a batch above about 27 000 (d = 16) to 32 000
+#: (d = 2) matrices with CUSOLVER_STATUS_INVALID_VALUE (torch 2.11,
+#: CUDA 12.8, H100).
+_EIGH_MAX_BATCH = 16384
 
 
 def _eig_gaps(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -68,7 +76,11 @@ class _Eigh(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h):
-        w, v = torch.linalg.eigh(h)
+        flat = h.reshape(-1, *h.shape[-2:])
+        parts = [torch.linalg.eigh(part)
+                 for part in flat.split(_EIGH_MAX_BATCH)]
+        w = torch.cat([p[0] for p in parts]).reshape(h.shape[:-1])
+        v = torch.cat([p[1] for p in parts]).reshape(h.shape)
         ctx.save_for_backward(w, v)
         return w, v
 
@@ -733,6 +745,196 @@ def calculate_control_matrix_from_scratch(
 
 
 # -----------------------------------------------------------------------------
+# K5 / K6: control matrix from atomic pulses / of a periodic train
+# -----------------------------------------------------------------------------
+#: Series-size complex128 arrays that :func:`geometric_series
+#: <.util.geometric_series>` holds at once (result, power, partial sum,
+#: T^k and the two operands of a step).
+_SERIES_TEMPS = 6
+
+
+def _apply_transfer(props: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """sum_k props[..., k, l] x[..., k, o] -> (..., l, o) for complex x
+    (contiguous) and real or complex props; real transfer matrices act
+    on the interleaved (re, im) view of x, half the work of a complex
+    product."""
+    if props.is_complex():
+        return props.mT @ x
+    xr = torch.view_as_real(x).flatten(-2)
+    return torch.view_as_complex((props.mT @ xr).unflatten(-1, (-1, 2)))
+
+
+def _atomic_operands(phases, control_matrix_atomic, propagators_liouville):
+    """K5's operands as tensors on the device of the atomic control
+    matrices: complex128 phases and control matrices, float64 or
+    complex128 transfer matrices."""
+    ctrl = torch.as_tensor(control_matrix_atomic).to(config.COMPLEX)
+    phases = torch.as_tensor(phases, device=ctrl.device).to(config.COMPLEX)
+    props = torch.as_tensor(propagators_liouville, device=ctrl.device)
+    return phases, ctrl, props.to(config.COMPLEX if props.is_complex()
+                                  else config.REAL)
+
+
+@util.parse_optional_parameters(which=('total', 'correlations'))
+def calculate_control_matrix_from_atomic(
+        phases, control_matrix_atomic, propagators_liouville,
+        show_progressbar: bool = False, which: str = 'total',
+        budget_bytes: Optional[int] = None) -> torch.Tensor:
+    r"""K5: B(w) = sum_g e^{i w t_{g-1}} B^(g)(w) Q^(g-1) of a sequence
+    of pulses with atomic control matrices B^(g).
+
+    phases (G-1, n_w), unity for g = 0 implied; control_matrix_atomic
+    (G, n_nops, d^2, n_w); propagators_liouville (G-1, d^2, d^2), the
+    cumulative transfer matrices, real (Hermitian, normalized basis) or
+    complex.
+
+    'correlations' returns the summands (G, n_nops, d^2, n_w).  'total'
+    contracts the joint (g, k) axis in one matrix product per chunk of
+    pulses, Q[(g k), l]^T @ X[j, (g k), o] with X the phased atomic
+    matrices, so the summands never exist; the chunks keep X within
+    :func:`.config.memory_budget` (*budget_bytes* overrides it).  The
+    product is native complex128 (float64 for real Q) at every G.
+    """
+    phases, ctrl, props = _atomic_operands(phases, control_matrix_atomic,
+                                           propagators_liouville)
+    if which == 'correlations':
+        steps = _apply_transfer(props[:, None],
+                                ctrl[1:] * phases[:, None, None, :])
+        return torch.cat([ctrl[:1], steps])
+
+    g1, n_w = phases.shape
+    n_nops, d2 = ctrl.shape[1:3]
+    chunk = _pick_chunk(g1, n_nops * d2 * n_w * 16, config.memory_budget(
+        ctrl.device, budget_bytes=budget_bytes))
+    result = ctrl[0]
+    for start in util.progressbar_range(0, g1, chunk,
+                                        show_progressbar=show_progressbar):
+        sl = slice(start, start + chunk)
+        g = phases[sl].shape[0]
+        x = torch.empty((n_nops, g, d2, n_w), dtype=config.COMPLEX,
+                        device=ctrl.device)
+        torch.mul(ctrl[1:][sl].transpose(0, 1), phases[sl][None, :, None, :],
+                  out=x)
+        result = result + _apply_transfer(props[sl].reshape(g * d2, -1),
+                                          x.reshape(n_nops, g * d2, n_w))
+    return result
+
+
+def calculate_control_matrix_from_atomic_uniform(
+        phases, control_matrix, propagators_liouville) -> torch.Tensor:
+    r"""K5 for a train of identical atomic pulses: with one atomic
+    control matrix B the sum factorizes,
+    B(w) = B + B . sum_g e^{i w t_{g-1}} Q^(g-1), and no
+    (G, n_nops, d^2, n_w) stack exists.
+
+    phases (G-1, n_w); control_matrix (n_nops, d^2, n_w);
+    propagators_liouville (G-1, d^2, d^2) real or complex.
+    """
+    phases, ctrl, props = _atomic_operands(phases, control_matrix,
+                                           propagators_liouville)
+    g1, d2 = props.shape[:2]
+    m = (phases.mT @ props.reshape(g1, -1).to(config.COMPLEX)).reshape(
+        -1, d2, d2)                                         # (o, k, l)
+    return ctrl + (ctrl.permute(2, 0, 1) @ m).permute(1, 2, 0)
+
+
+def calculate_control_matrix_periodic(
+        phases, control_matrix, total_propagator_liouville, repeats: int,
+        check_invertible: bool = True,
+        budget_bytes: Optional[int] = None) -> torch.Tensor:
+    r"""K6: the control matrix of *repeats* repetitions of one pulse,
+    B . S(w) with S = sum_{g<G} (e^{i w T} Q)^g evaluated by binary
+    doubling (:func:`.util.geometric_series`), which needs no inverse:
+    *check_invertible* is accepted and ignored.
+
+    phases (n_w,), e^{i w T}; control_matrix (n_nops, d^2, n_w);
+    total_propagator_liouville (d^2, d^2) real or complex.  The
+    (n_w, d^2, d^2) series runs over chunks of frequencies that keep its
+    :data:`_SERIES_TEMPS` arrays within :func:`.config.memory_budget`
+    (*budget_bytes* overrides it).
+    """
+    ctrl = torch.as_tensor(control_matrix).to(config.COMPLEX)
+    phases = torch.as_tensor(phases, device=ctrl.device).to(config.COMPLEX)
+    props = torch.as_tensor(total_propagator_liouville,
+                            device=ctrl.device).to(config.COMPLEX)
+    d2 = props.shape[-1]
+    chunk = _pick_chunk(len(phases), _SERIES_TEMPS * d2 * d2 * 16,
+                        config.memory_budget(ctrl.device,
+                                             budget_bytes=budget_bytes))
+    out = []
+    for start in range(0, len(phases), chunk):
+        sl = slice(start, start + chunk)
+        series = util.geometric_series(phases[sl, None, None] * props,
+                                       int(repeats))        # (o, k, l)
+        out.append(ctrl[..., sl].permute(2, 0, 1) @ series)
+    return torch.cat(out).permute(1, 2, 0)
+
+
+# -----------------------------------------------------------------------------
+# K7: noise operators
+# -----------------------------------------------------------------------------
+def calculate_noise_operators_from_scratch(
+        eigvals: torch.Tensor, eigvecs: torch.Tensor,
+        propagators: torch.Tensor, omega, n_opers, n_coeffs, dt, t=None,
+        show_progressbar: bool = False, cache_intermediates: bool = False):
+    r"""K7: the interaction-picture noise operators
+    Btilde_a(w) = sum_g e^{i w t_{g-1}} P_g^dag [Bbar_a o I(w)] P_g with
+    P_g = V_g^dag Q_{g-1}, (n_w, n_nops, d, d), on the device of
+    *eigvals*: d^2 entries per frequency where the control matrix has
+    d^4.
+
+    Arguments as :func:`calculate_control_matrix_from_scratch`.  With
+    ``cache_intermediates`` also a dict of the transformed noise
+    operators, the first-order integral, the phase factors and the
+    per-segment summands (G, n_w, n_nops, d, d).
+    """
+    device = eigvals.device
+
+    def real(x):
+        return torch.as_tensor(x, dtype=config.REAL, device=device)
+
+    omega, n_coeffs, dt = real(omega), real(n_coeffs), real(dt)
+    t = real(t) if t is not None else torch.cat(
+        [dt.new_zeros(1), torch.cumsum(dt, 0)])
+    n_opers = torch.as_tensor(n_opers, dtype=config.COMPLEX, device=device)
+
+    # V^dag Q: the arguments of the control matrix's Q^dag V, swapped
+    eigvecs_propagated = _propagate_eigenvectors(eigvecs, propagators[:-1])
+    n_opers_transformed = _transform_hamiltonian(eigvecs, n_opers, n_coeffs)
+    phase_factors = util.cexp(t[:-1, None] * omega)             # (G, n_w)
+    integral = _first_order_integral_batched(omega, eigvals, dt)
+    inner = (phase_factors[..., None, None] * integral)[:, :, None] \
+        * n_opers_transformed.transpose(0, 1)[:, None]      # (g, o, j, m, n)
+    vp = eigvecs_propagated[:, None, None]
+    step = vp.mH @ inner @ vp
+    noise_operators = step.sum(0)
+    if cache_intermediates:
+        return noise_operators, dict(
+            n_opers_transformed=n_opers_transformed,
+            first_order_integral=integral, phase_factors=phase_factors,
+            noise_operators_step=step)
+    return noise_operators
+
+
+def calculate_noise_operators_from_atomic(
+        phases, noise_operators_atomic, propagators,
+        show_progressbar: bool = False) -> torch.Tensor:
+    r"""K7 from atomic pulses: Btilde(w) = sum_g e^{i w t_{g-1}}
+    Q_{g-1}^dag Btilde^(g)(w) Q_{g-1}.
+
+    phases (G-1, n_w); noise_operators_atomic (G, n_w, n_nops, d, d),
+    the layout of :func:`calculate_noise_operators_from_scratch`;
+    propagators (G-1, d, d), the cumulative propagators.
+    """
+    atomic = torch.as_tensor(noise_operators_atomic).to(config.COMPLEX)
+    phases = torch.as_tensor(phases, device=atomic.device).to(config.COMPLEX)
+    props = torch.as_tensor(propagators, device=atomic.device).to(
+        config.COMPLEX)[:, None, None]
+    rest = phases[..., None, None, None] * atomic[1:]
+    return atomic[0] + (props.mH @ rest @ props).sum(0)
+
+
+# -----------------------------------------------------------------------------
 # K8 / K9: filter functions from the control matrix
 # -----------------------------------------------------------------------------
 @util.parse_optional_parameters(which=('fidelity', 'generalized'))
@@ -961,6 +1163,97 @@ def calculate_second_order_filter_function_from_scratch(
     for key, value in zip(keys, (n_t, b_t, step, cumul)):
         out.setdefault(key, value)
     return result, out
+
+
+# -----------------------------------------------------------------------------
+# K11: second-order filter function from atomic pulses
+# -----------------------------------------------------------------------------
+def calculate_second_order_filter_function_from_atomic(
+        basis: Union[Basis, torch.Tensor], filter_function_atomic,
+        control_matrix_atomic, control_matrix_atomic_step,
+        control_matrix_atomic_cumulative, propagators, propagators_liouville,
+        intermediates: Sequence[Mapping[str, Any]],
+        show_progressbar: bool = False,
+        budget_bytes: Optional[int] = None) -> torch.Tensor:
+    r"""K11: the concatenation rule of the second-order filter function.
+
+    To F^(2) of the first pulse (*filter_function_atomic*) every later
+    pulse g adds the cross term conj(B_step^(g)) B_cumul^(g-1), its own
+    complete steps transformed by the cumulative transfer matrix,
+    Q^T N^(g) Q, and its incomplete steps with the eigenvectors
+    propagated by the cumulative propagator.
+
+    control_matrix_atomic (G, ...) gives the number of pulses;
+    control_matrix_atomic_step and _cumulative (G, n_nops, n_b, n_w) are
+    K5's summands and their running sum; propagators (G-1, d, d) and
+    propagators_liouville (G-1, d^2, d^2) the cumulative ones;
+    *intermediates* the pulses' caches, each with 'eigvecs_propagated',
+    'n_opers_transformed', 'second_order_integral' and
+    'second_order_complete_steps'.
+
+    The incomplete steps of a group of pulses run over one concatenated
+    segment axis (the pulses' segment counts may differ); the groups
+    keep the concatenated K2 lattices and the contraction's two
+    intermediates within :func:`.config.memory_budget` (*budget_bytes*
+    overrides it).  Returns (n_nops, n_nops, n_b, n_b, n_w).
+    """
+    required = ('eigvecs_propagated', 'n_opers_transformed',
+                'second_order_integral', 'second_order_complete_steps')
+    for key in required:
+        if not all(key in im for im in intermediates):
+            raise ValueError(f"Required intermediate term {key} not found "
+                             "in all intermediates.")
+
+    result = torch.as_tensor(filter_function_atomic)
+    device = result.device
+    G = len(control_matrix_atomic)
+    if G < 2:
+        return result
+    basis = (basis.tensor(device) if isinstance(basis, Basis)
+             else torch.as_tensor(basis, dtype=config.COMPLEX,
+                                  device=device))
+    step = torch.as_tensor(control_matrix_atomic_step, device=device)
+    cumul = torch.as_tensor(control_matrix_atomic_cumulative, device=device)
+    props = torch.as_tensor(propagators, device=device)
+    ql = torch.as_tensor(propagators_liouville, device=device).to(
+        config.COMPLEX)
+
+    result = result + _second_order_complete(step[1:G], cumul[:G - 1])
+
+    n_nops, n_basis = step.shape[1:3]
+    costs = []
+    for g in range(1, G):
+        h, n_w, d = intermediates[g]['second_order_integral'].shape[:3]
+        costs.append(h * n_w * d * d * (d * d + 2 * n_nops * n_basis) * 16)
+    budget = config.memory_budget(device, budget_bytes=budget_bytes)
+    groups, used = [[]], 0
+    for g, cost in zip(range(1, G), costs):
+        if groups[-1] and used + cost > budget:
+            groups.append([])
+            used = 0
+        groups[-1].append(g)
+        used += cost
+
+    for group in util.progressbar(groups) if show_progressbar else groups:
+        idx = torch.as_tensor(group, device=device) - 1
+        complete = torch.stack(
+            [intermediates[g]['second_order_complete_steps'] for g in group])
+        result = result + torch.einsum('gpk,gabpqo,gql->abklo', ql[idx],
+                                       complete, ql[idx])
+
+        evs = [intermediates[g]['eigvecs_propagated'] for g in group]
+        rep = torch.repeat_interleave(
+            idx, torch.as_tensor([len(ev) for ev in evs], device=device))
+        eigvecs_propagated = _propagate_eigenvectors(props[rep],
+                                                     torch.cat(evs))
+        n_t = torch.cat([intermediates[g]['n_opers_transformed']
+                         for g in group], 1)                # (a, H, i, j)
+        int2 = torch.cat([intermediates[g]['second_order_integral']
+                          for g in group])                  # (H, o, ...)
+        vp = eigvecs_propagated[:, None]
+        nob = _noise_basis_products(n_t, vp.mH @ basis @ vp)
+        result = result + _second_order_incomplete_contract(int2, nob)
+    return result
 
 
 def trapezoid_weights(omega: torch.Tensor) -> torch.Tensor:

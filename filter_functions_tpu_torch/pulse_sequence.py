@@ -11,8 +11,8 @@ explicitly.  The three caches (``_data`` / ``_frequency_data`` /
 ``_intermediates``), their invalidation when omega changes and the
 ``cleanup`` tiers follow the JAX package.
 
-Concatenation (``@``) is not ported yet and raises
-``NotImplementedError``.
+``a @ b`` concatenates in time (:func:`.sequencing.concatenate`, which
+this module re-exports with its siblings).
 """
 from __future__ import annotations
 
@@ -155,16 +155,18 @@ class PulseSequence:
                     n_opers, n_oper_identifiers, n_coeffs, dt,
                     basis: Optional[Basis] = None,
                     device: Device = config.DEFAULT_DEVICE) -> 'PulseSequence':
-        """Construct directly from arrays, taken as they are (no
-        sorting)."""
+        """Construct directly from arrays, taken as they are: no
+        sorting, and no copy of an array that already has its dtype, so
+        pulses built from the same arrays share them (concatenation
+        recognizes repeated arrays by identity)."""
         new = cls.__new__(cls)
-        new.c_opers = util._host(c_opers).astype(complex)
+        new.c_opers = util._host(c_opers).astype(complex, copy=False)
         new.c_oper_identifiers = np.asarray(c_oper_identifiers)
-        new.c_coeffs = util._host(c_coeffs).astype(float)
-        new.n_opers = util._host(n_opers).astype(complex)
+        new.c_coeffs = util._host(c_coeffs).astype(float, copy=False)
+        new.n_opers = util._host(n_opers).astype(complex, copy=False)
         new.n_oper_identifiers = np.asarray(n_oper_identifiers)
-        new.n_coeffs = util._host(n_coeffs).astype(float)
-        new.dt = util._host(dt).astype(float)
+        new.n_coeffs = util._host(n_coeffs).astype(float, copy=False)
+        new.dt = util._host(dt).astype(float, copy=False)
         new.d = new.c_opers.shape[-1]
         new.basis = basis if basis is not None else Basis.ggm(new.d)
         new.device = config.resolve_device(device)
@@ -293,8 +295,11 @@ class PulseSequence:
         return new
 
     def __matmul__(self, other: 'PulseSequence') -> 'PulseSequence':
-        raise NotImplementedError('Concatenation is not ported yet '
-                                  '(ROADMAP queue 1, item 4)')
+        if not isinstance(other, PulseSequence):
+            raise TypeError('Incompatible type for concatenation: '
+                            f'{type(other)}')
+        from .sequencing import concatenate
+        return concatenate((self, other))
 
     def __imatmul__(self, other):
         raise NotImplementedError
@@ -735,3 +740,8 @@ class PulseSequence:
         u_curr = (eigvecs * phases[:, None, :]) @ eigvecs.mH
         return u_curr @ self.propagators[idx_t]
 
+
+# The sequencing API, defined in .sequencing; imported last because that
+# module imports this one.
+from .sequencing import (concatenate, concatenate_periodic,  # noqa: E402
+                         concatenate_without_filter_function)

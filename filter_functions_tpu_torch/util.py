@@ -23,6 +23,7 @@ from . import config
 
 __all__ = ['paulis', 'abs2', 'all_array_equal', 'dot_HS',
            'get_sample_frequencies', 'hash_array_along_axis', 'mdot', 'adot',
+           'matrix_power', 'geometric_series',
            'oper_equiv', 'remove_float_errors', 'tensor', 'integrate',
            'cexp', 'cexpm1', 'CalculationError', 'parse_optional_parameters',
            'parse_operators', 'parse_spectrum', 'is_sequence_like',
@@ -269,14 +270,49 @@ def adot(mats: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """Accumulated matrix product along *dim*:
     ``out[g] = mats[g] @ mats[g-1] @ ... @ mats[0]``.
 
-    A plain sequential product: the pulses of this library have tens of
-    segments, so the JAX package's log-depth scan buys nothing here.
+    A doubling scan, ``out[g] <- out[g] @ out[g - s]`` for s = 1, 2, 4,
+    ...: log2 G batched products in place of G small ones, each a launch
+    of its own.
     """
-    mats = mats.movedim(dim, 0)
-    out = [mats[0]]
-    for g in range(1, mats.shape[0]):
-        out.append(mats[g] @ out[-1])
-    return torch.stack(out).movedim(0, dim)
+    out, shift = mats.movedim(dim, 0), 1
+    while shift < out.shape[0]:
+        out = torch.cat([out[:shift], out[shift:] @ out[:-shift]])
+        shift *= 2
+    return out.movedim(0, dim)
+
+
+def matrix_power(a: torch.Tensor, p: int) -> torch.Tensor:
+    """Square matrices *a* (..., n, n) raised to the integer power
+    *p* >= 0 by binary exponentiation."""
+    result = torch.eye(a.shape[-1], dtype=a.dtype,
+                       device=a.device).expand_as(a)
+    base, k = a, int(p)
+    while k > 0:
+        if k & 1:
+            result = result @ base
+        k >>= 1
+        if k:
+            base = base @ base
+    return result
+
+
+def geometric_series(t: torch.Tensor, repeats: int) -> torch.Tensor:
+    r"""The matrix geometric series :math:`\sum_{g=0}^{G-1} T^g` of
+    square matrices *t* (..., n, n) by binary doubling,
+    ``S_{2k} = S_k + T^k S_k`` and ``T^{2k} = T^k T^k``: about
+    2 log2 G batched products, no solve and no invertibility check."""
+    eye = torch.eye(t.shape[-1], dtype=t.dtype, device=t.device).expand_as(t)
+    s, tk, k = eye, t, int(repeats)
+    result, power = torch.zeros_like(t), eye       # sum so far, T^(done)
+    while k > 0:
+        if k & 1:
+            result = result + power @ s
+            power = power @ tk
+        k >>= 1
+        if k:
+            s = s + tk @ s
+            tk = tk @ tk
+    return result
 
 
 def integrate(f: torch.Tensor, x: Optional[torch.Tensor] = None,

@@ -12,7 +12,7 @@ import filter_functions_tpu_torch as fft
 from filter_functions_tpu_torch import config, convert
 from filter_functions_tpu_torch.models import qft
 from testutil import make_pulse, rand_pulse_arrays
-from torch_testutil import fft_cpu
+from torch_testutil import QFT_NPZ, fft_cpu
 
 
 def _port_name(name: str) -> str:
@@ -131,7 +131,7 @@ def test_default_device_without_a_card_raises():
     X, Z = fft.util.paulis[1], fft.util.paulis[3]
     arrays = dict(zip(convert.PULSE_FIELDS, rand_pulse_arrays(
         2, 3, local_rng=np.random.default_rng(5))))
-    with np.load(qft._ARRAYS_DIR / 'qft4_arrays.npz') as z:
+    with np.load(QFT_NPZ) as z:
         npz = dict(z)
     calls = {
         'qft_pulse_arrays': lambda: fft.qft_pulse_arrays(4),

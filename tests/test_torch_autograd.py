@@ -26,6 +26,7 @@ from filter_functions_tpu_torch import functional, numeric
 from filter_functions_tpu_torch.models import qft
 from filter_functions_tpu_torch.ops import dword, ozaki
 from testutil import rand_pulse_arrays
+from torch_testutil import QFT_NPZ
 
 
 def _t(x):
@@ -51,7 +52,7 @@ def _grad(p, spectrum, omega, **kw):
 @pytest.fixture(scope='module')
 def qft_arrays():
     """The flagship's host arrays (complex operators)."""
-    with np.load(qft._ARRAYS_DIR / 'qft4_arrays.npz') as z:
+    with np.load(QFT_NPZ) as z:
         z = dict(z)
     return dict(c_opers=z['c_opers_re'] + 1j * z['c_opers_im'],
                 n_opers=z['n_opers_re'] + 1j * z['n_opers_im'],

@@ -19,11 +19,16 @@ from filter_functions_tpu_torch.ops import dword, ozaki
 #: first is the Pallas test shape, the second the flagship's (K = G d^2 =
 #: 3328, 18 noise operators, 256 basis elements, 5 digits of 7 bits, the
 #: main path's 2 pulses a call), the third a ragged K (K % 16 != 0: byte
-#: stores), the fourth a K above the kernel's register cap of 16384.
+#: stores), the fourth a K above the kernel's register cap of 16384, the
+#: fifth one flagship pulse alone (the object path's call), the sixth a
+#: train of four flagship-sized gates from scratch (52 segments, K =
+#: 13312: between 8192 and the cap each thread keeps two runs of words).
 SHAPES = {'small': (512, 3, 128, 4, 7, 2),
           'flagship': (3328, 18, 256, 5, 7, 2),
           'ragged': (333, 2, 9, 5, 7, 3),
-          'above_cap': (20000, 2, 16, 5, 7, 1)}
+          'above_cap': (20000, 2, 16, 5, 7, 1),
+          'flagship_one': (3328, 18, 256, 5, 7, 1),
+          'deep_train': (13312, 18, 256, 5, 7, 1)}
 
 
 def _factors(K, J, C, seed, batch=None):

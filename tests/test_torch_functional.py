@@ -207,8 +207,9 @@ def test_single_pulse_entry_points(flagship):
 
 def test_pulse_arrays_from_both_layouts():
     """convert takes the npz layout (*_re / *_im fields) and a JAX
-    PulseArrays with numpy leaves to the same tensors; the QFT loader
-    reads the npz without JAX."""
+    PulseArrays with numpy leaves to the same tensors; the QFT loader,
+    which builds the pulse live and reads no file, gives those tensors
+    bit for bit, and any number of qubits."""
     npz = np.load(REPO / 'filter_functions_tpu' / 'models'
                   / 'qft4_arrays.npz')
     from_npz = convert.pulse_arrays_from_numpy(dict(npz), device='cpu')
@@ -222,8 +223,9 @@ def test_pulse_arrays_from_both_layouts():
     assert loaded.c_opers.dtype == torch.complex128
     assert loaded.basis.shape == (256, 16, 16)
     assert loaded.dt.dtype == torch.float64 and loaded.dt.shape == (13,)
-    with pytest.raises(FileNotFoundError):
-        qft.qft_pulse_arrays(3, device='cpu')
+    three = qft.qft_pulse_arrays(3, device='cpu')
+    assert three.c_opers.shape[1:] == (8, 8) and three.dt.shape == (10,)
+    assert three.basis.shape == (64, 8, 8)
 
 
 def test_port_imports_no_jax():

@@ -158,8 +158,9 @@ def test_from_arrays_validation(field):
 def test_attributes_and_unsupported_operations():
     """len, d, t, tau, duration and the string forms; numpy keeps a
     pulse whole; the second-order filter function and the filter-function
-    derivative match JAX's within 1e-12 of their largest entry;
-    concatenation is not ported and says so."""
+    derivative match JAX's within 1e-12 of their largest entry; p @ p
+    is the concatenation (equal to JAX's, filter function within 1e-12
+    of its largest entry), @ with another type and @= raise as JAX's."""
     jp, p = _pair(2, 5, 3)
     assert len(p) == 5 and p.d == 2
     np.testing.assert_array_equal(p.t, jp.t)
@@ -167,8 +168,14 @@ def test_attributes_and_unsupported_operations():
     assert 'dimension 2' in str(p) and repr(p)
     arr = np.asarray([p, p])
     assert arr.shape == (2,) and arr.dtype == object
-    with pytest.raises(NotImplementedError, match='item 4'):
-        p @ p
+    pp, jpp = p @ p, jp @ jp
+    assert len(pp) == 10 and pp == fft.concatenate((p, p))
+    for name in convert.PULSE_FIELDS:
+        np.testing.assert_array_equal(getattr(pp, name), getattr(jpp, name))
+    _close(pp.get_filter_function(_omega(5)),
+           jpp.get_filter_function(_omega(5)))
+    with pytest.raises(TypeError, match='Incompatible type'):
+        p @ 3
     with pytest.raises(NotImplementedError):
         p @= p
     _close(p.get_filter_function(_omega(5), order=2),
