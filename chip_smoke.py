@@ -9,13 +9,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 2. build: compiles the CUDA kernel from ``csrc/`` and prints nvcc's
    register / shared-memory / spill report.
 3. kernel: ``dword_digits`` on the card against its plain PyTorch
-   version on the card, bit-exact, at the six shapes of
+   version on the card, bit-exact, at the seven shapes of
    ``KERNEL_SHAPES``: K, J, C, n_d = 512, 3, 128, 4; the flagship's 3328,
    18, 256, 5 (batch 2, as the main path calls it); a ragged K = 333
    (byte stores); K = 20000, above the kernel's register cap; the
    flagship at batch 1 (the object path's call, phases 6, 7a, 9a, 9b);
    K = 13312 at batch 1 (phase 9c's 52-segment pulse from scratch: the
-   instance that keeps two runs of words a thread).  Times the
+   instance that keeps two runs of words a thread); K = 3328, J = 3 at
+   batch 1 (phase 10a's crosstalk rows).  Times the
    flagship call of both beside its memory bound and the card's name and
    power limit.
 4. main path: ``functional.batched_infidelity`` on the 4-qubit QFT pulse
@@ -117,6 +118,49 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       concatenated with ``calc_second_order_FF``: within 1e-12 of the
       16-segment pulse's second-order filter function from scratch.
 
+10. composition in space, spectroscopy and the exchange model.
+   a. ``fft.extend`` at the flagship's width: two d = 4 parts (13
+      segments of the flagship's durations, Pauli basis, X and Y controls
+      on both qubits and an (XX + YY)/4 exchange, amplitudes from
+      ``default_rng(8)``; X, Y, Z noise on both qubits) with filter
+      functions cached at phase 4's 1000 frequencies (0 launches: K =
+      208) are mapped to qubits (0, 2) and (3, 1) (the second remapped
+      inside extend) with three crosstalk operators Z_i Z_{i+1}/4 + Z_i/2
+      on the pairs (0, 1), (1, 2), (2, 3) as additional noise: N = 4, d =
+      16, 256 Pauli elements, 15 noise operators; the crosstalk rows
+      come from scratch on the default route (K = 3328: 1 launch).
+      Checks the operators, identifiers and coefficients against the
+      explicitly built register pulse (exactly), its total propagator
+      (1e-12), the parts' control-matrix rows against its native ones
+      (1e-12 of the largest entry), the crosstalk rows (1e-5), the cached
+      filter function against B^H B of the cached control matrix (1e-14)
+      and against the explicit pulse's, cross blocks included (1e-5), the
+      infidelity under a spectrum that correlates each crosstalk operator
+      with its Z row (1e-10), and the card against the CPU with the
+      crosstalk rows native (1e-12); times 5 cold extends beside the
+      explicit pulse's cold control matrix, with the peak memory.
+   b. ``fft.remap`` of 10a's pulse to qubit order (2, 0, 3, 1): the
+      cached control matrix is the index permutation of 10a's
+      (``torch.equal``), the operators are ``tensor_transpose`` of 10a's,
+      and the remapped pulse's native control matrix from scratch agrees
+      (1e-12 on the parts' rows, 1e-5 on the crosstalk rows); 0
+      launches; timed.
+   c. Spectroscopy: CPMG-8 at 1024 durations in geomspace(0.3, 30)
+      (``models.dd``, Z/2 noise), fidelity filter functions at 400
+      frequencies in geomspace(0.2, 200) through
+      ``functional.fidelity_filter_function``; ``design_matrix`` with 12
+      nodes and ``reconstruct`` of 1e-3/nodes^0.7 (ridge 1e-10, 2000
+      steps).  Checks A s against ``fft.infidelity`` of the interpolated
+      spectrum on 8 pulses (1e-10 relative), s >= 0, the forward residual
+      (1e-3), the interior nodes (0.15) and the card against the CPU
+      (``S_HAT_PARITY``); times both.
+   d. ``models.exchange``: ``heisenberg_operators(4)`` and ``cnot_pulse``
+      on a .mat file of the published file's fields and shapes, written
+      to a temporary directory from ``default_rng(9)`` (n_dt =
+      ``CNOT_SEGMENTS``; not the published pulse): its infidelity in
+      ``qubit_subspace_basis()`` under the Dial spectrum within 1e-12
+      relative of the CPU port's; prints the launches.
+
 Before the last line come the card's label and the kernels' JSON
 record, in that order; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -126,15 +170,18 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 import filter_functions_tpu_torch as fft
-from filter_functions_tpu_torch import (analytic, config, functional,
-                                        numeric, superoperator)
-from filter_functions_tpu_torch.models import dd, qft, rb
+from filter_functions_tpu_torch import (analytic, basis, config, functional,
+                                        numeric, spectroscopy, superoperator,
+                                        util)
+from filter_functions_tpu_torch.models import dd, exchange, qft, rb
 from filter_functions_tpu_torch.ops import _build, dword
 
 N_OMEGA = 1000
@@ -147,7 +194,8 @@ KERNEL_SHAPES = {'small': (512, 3, 128, 4, 7, 1),
                  'ragged': (333, 2, 9, 5, 7, 3),
                  'above_cap': (20000, 2, 16, 5, 7, 1),
                  'flagship_one': (3328, 18, 256, 5, 7, 1),
-                 'deep_train': (13312, 18, 256, 5, 7, 1)}
+                 'deep_train': (13312, 18, 256, 5, 7, 1),
+                 'extend_extra': (3328, 3, 256, 5, 7, 1)}
 #: The H100 SXM's device-memory rate (NVIDIA's data sheet), bytes/s.
 #: There is no published int32 rate, so a kernel's bound here is its
 #: memory floor.
@@ -223,6 +271,22 @@ DD_PARITY = 1e-10
 TRAIN_SHAPE = (10_000, 400)
 DD_SHAPE = (16, 400, 1024)
 RB_SHAPE = (1024, 20, 301)
+#: extend's cached filter function against B^H B of its cached control
+#: matrix, relative: the same product.
+FF_IDENTITY = 1e-14
+#: The spectroscopy family (10c): (pulses, frequencies, nodes, steps).
+SPECTRO_SHAPE = (1024, 400, 12, 2000)
+#: The card's reconstruction against the CPU port's, relative to the
+#: largest node value: A^T A at ridge 1e-10 has condition number ~1e10,
+#: so two SVDs of the least-squares start differ by up to cond * eps
+#: ~2e-6 along its smallest singular vector, which the steps hardly move
+#: (tests/test_torch_spectroscopy.py holds the port to JAX by the same
+#: bound).
+S_HAT_PARITY = 1e-5
+#: Segments of the .mat file of 10d: K = 36 n_dt = 18 000 is above the
+#: deep regime, so the card runs the native route and holds the CPU's
+#: infidelity to 1e-12.
+CNOT_SEGMENTS = 500
 
 
 def _card_label() -> str:
@@ -286,16 +350,17 @@ def check_kernel(device, card):
                                  f'its plain version (max |diff| {err})')
         print(f'kernel {name} K={K} J={J} C={C} n_d={n_d} batch={batch}: '
               f'bit-exact against the plain version (tolerance 0)')
-        if name == 'flagship':
+        if name in ('flagship', 'extend_extra'):
             ms = _cuda_ms(lambda: dword.dword_digits(*factors, n_d, sb), 20)
             plain_ms = _cuda_ms(lambda: dword.dword_digits_reference(
                 *factors, n_d, sb), 5)
             bound_ms = dword_bound_ms(K, J, C, n_d, batch)
-            print(f'kernel flagship: dword_digits {ms:.4f} ms, plain '
+            print(f'kernel {name}: dword_digits {ms:.4f} ms, plain '
                   f'version {plain_ms:.4f} ms per call of {batch} pulses; '
                   f'memory bound {bound_ms:.4f} ms, '
                   f'{100 * bound_ms / ms:.1f} % of it [{card}]')
-            result = (err, ms, plain_ms, bound_ms)
+            if name == 'flagship':
+                result = (err, ms, plain_ms, bound_ms)
     return result
 
 
@@ -414,6 +479,16 @@ def main() -> int:
         **concat_distinct(device, card, batched),
         'concatenate (d = 2 trains, dd, rb)': concat_small(device, card),
         'concatenate (second order)': concat_second_order(device, card)}
+
+    # 10. composition in space, spectroscopy, exchange
+    extended, space_launches = extend_flagship(device, card)
+    space_launches.update(remap_extended(device, card, extended))
+    del extended
+    space_launches['spectroscopy (CPMG-8 family)'] = spectroscopy_cpmg(
+        device, card)
+    space_launches['models.exchange.cnot_pulse'] = exchange_cnot(device,
+                                                                 card)
+    concat_launches.update(space_launches)
 
     print(card)
     print(json.dumps({'kernels': [{
@@ -1176,6 +1251,341 @@ def concat_second_order(device, card) -> int:
           f'ms per cold composition (both parts\' second-order caches, then '
           f'K11; median of {N_TIMED}) [{card}]')
     return dword.launches
+
+
+def _extend_parts(device):
+    """Phase 10a's two d = 4 parts (their host Hamiltonians from
+    default_rng(8)), the register pulse built explicitly on *device*,
+    the additional noise Hamiltonian and the register's identifiers of
+    the crosstalk operators and of the Z rows they correlate with."""
+    I2, X, Y, Z = util.paulis
+    dt = qft.qft_pulse_sequence(4, device='cpu').dt
+    n_dt = len(dt)
+    rng = np.random.default_rng(8)
+    local = {'Xa': (X, I2), 'Xb': (I2, X), 'Ya': (Y, I2), 'Yb': (I2, Y)}
+    noise = {f'{p}{q}': (P, I2) if q == 'a' else (I2, P)
+             for p, P in zip('XYZ', (X, Y, Z)) for q in 'ab'}
+    parts, H_c, H_n = [], [], []
+    for qubits in ((0, 2), (3, 1)):
+        amps = rng.standard_normal((5, n_dt))
+        ops = {name: util.tensor(*pair) / 2 for name, pair in local.items()}
+        ops['J'] = (util.tensor(X, X) + util.tensor(Y, Y)) / 4
+        parts.append(fft.PulseSequence(
+            [[op, a, name] for (name, op), a in zip(ops.items(), amps)],
+            [[util.tensor(*pair) / 2, np.ones(n_dt), name]
+             for name, pair in noise.items()],
+            dt, basis.Basis.pauli(2), device=device))
+
+        def on_register(pair):
+            factors = [I2] * 4
+            for q, P in zip(qubits, pair):
+                factors[q] = P
+            return util.tensor(*factors)
+        suffix = ''.join(map(str, sorted(qubits)))
+        for (name, pair), a in zip(local.items(), amps):
+            H_c.append([on_register(pair) / 2, a, f'{name}_{suffix}'])
+        H_c.append([(on_register((X, X)) + on_register((Y, Y))) / 4,
+                    amps[4], f'J_{suffix}'])
+        for name, pair in noise.items():
+            H_n.append([on_register(pair) / 2, np.ones(n_dt),
+                        f'{name}_{suffix}'])
+    extra, pairs = [], []
+    for i in range(3):
+        zz = [I2] * 4
+        zz[i] = zz[i + 1] = Z
+        z = [I2] * 4
+        z[i] = Z
+        extra.append([util.tensor(*zz) / 4 + util.tensor(*z) / 2,
+                      np.ones(n_dt), f'ZZ{i}{i + 1}'])
+        # the part and its qubit that hold register qubit i
+        pairs.append((f'ZZ{i}{i + 1}', {0: 'Za_02', 1: 'Zb_13',
+                                        2: 'Zb_02'}[i]))
+    explicit = fft.PulseSequence(H_c, H_n + extra, dt,
+                                 basis.Basis.pauli(4), device=device)
+    return parts, explicit, extra, pairs
+
+
+def _extend(parts, extra):
+    return fft.extend([(parts[0], (0, 2)), (parts[1], (3, 1))],
+                      additional_noise_Hamiltonian=extra)
+
+
+def _rows(pulse, identifiers) -> np.ndarray:
+    return util.get_indices_from_identifiers(pulse.n_oper_identifiers,
+                                             identifiers)
+
+
+def extend_flagship(device, card):
+    """Phase 10a: extend at the flagship's width; returns the extended
+    pulse and the kernel's launches by what made them."""
+    omega, _ = _omega_spectrum(device)
+    parts, explicit, extra, pairs = _extend_parts(device)
+    dword.launches = 0
+    for part in parts:
+        part.cache_filter_function(omega)
+    torch.cuda.synchronize()
+    part_launches = dword.launches
+    torch.cuda.reset_peak_memory_stats(device)
+    dword.launches = 0
+    ext = _extend(parts, extra)
+    torch.cuda.synchronize()
+    launches = dword.launches
+    peak = torch.cuda.max_memory_allocated(device)
+    same = all(np.array_equal(getattr(ext, f), getattr(explicit, f))
+               for f in ('c_opers', 'c_oper_identifiers', 'c_coeffs',
+                         'n_opers', 'n_oper_identifiers', 'n_coeffs', 'dt'))
+    prop = (ext.total_propagator - explicit.total_propagator).abs().max() \
+        .item()
+    extra_ids = [e[2] for e in extra]
+    part_ids = [i for i in ext.n_oper_identifiers if i not in extra_ids]
+    ctrl = ext.get_control_matrix(omega)
+    native = _native_control_matrix(explicit, omega)
+    rows, extra_rows = _rows(ext, part_ids), _rows(ext, extra_ids)
+    to_parts = _rel(ctrl[rows], native[rows])
+    to_extra = _rel(ctrl[extra_rows], native[extra_rows])
+    cached = ext.get_filter_function(omega)
+    identity = _rel(cached, numeric.calculate_filter_function(ctrl))
+    native_ff = numeric.calculate_filter_function(native)
+    to_explicit = _rel(cached, native_ff)
+    cross = [(int(_rows(ext, [a])[0]), int(_rows(ext, [b])[0]))
+             for a, b in pairs]
+    cross_min = min(native_ff[a, b].abs().max().item() for a, b in cross)
+    to_cross = max((cached[a, b] - native_ff[a, b]).abs().max().item()
+                   for a, b in cross) / native_ff.abs().max().item()
+    n = len(ext.n_opers)
+    spectrum = torch.zeros((n, n, len(omega)), dtype=torch.float64,
+                           device=device)
+    spectrum[torch.arange(n), torch.arange(n)] = 1e-4 / omega
+    for a, b in cross:
+        spectrum[a, b] = spectrum[b, a] = 5e-5 / omega
+    infid = fft.infidelity(ext, spectrum, omega)
+    explicit.cache_control_matrix(omega, native)
+    infid_explicit = fft.infidelity(explicit, spectrum, omega)
+    to_infid = (infid - infid_explicit).abs().max().item()
+    print(f'extend: 2 parts of d = 4, {len(ext)} segments, cached with '
+          f'{part_launches} dword_digits launches; extended to N = 4 (d = '
+          f'{ext.d}, {len(ext.basis)} Pauli elements, {n} noise operators, '
+          f'3 crosstalk) with {launches} launch; operators, identifiers '
+          f'and coefficients equal to the explicit pulse\'s: {same}; total '
+          f'propagator max |diff| {prop:.3e} (bound {CONCAT_PARITY})')
+    print(f'extend: parts\' control-matrix rows against the explicit '
+          f'pulse\'s native {to_parts:.3e} of the largest entry (bound '
+          f'{CONCAT_PARITY}), crosstalk rows {to_extra:.3e} (bound '
+          f'{OZAKI_CTRL_PARITY}); cached filter function against B^H B '
+          f'{identity:.3e} (bound {FF_IDENTITY}), against the explicit '
+          f'pulse\'s {to_explicit:.3e} (bound {OZAKI_CTRL_PARITY}), on the '
+          f'3 cross blocks {to_cross:.3e} (smallest cross block '
+          f'{cross_min:.3e}); correlated infidelity against the explicit '
+          f'pulse\'s native max |diff| {to_infid:.3e} (bound {PARITY}), '
+          f'sum {infid.sum().item():.12e}')
+    if part_launches != 0 or launches != 1:
+        raise AssertionError(f'launches: parts {part_launches} (expected '
+                             f'0), extend {launches} (expected 1)')
+    if not same:
+        raise AssertionError('the extended pulse is not the explicit one')
+    _check('total propagator', prop, CONCAT_PARITY)
+    _check('parts\' rows', to_parts, CONCAT_PARITY)
+    _check('crosstalk rows', to_extra, OZAKI_CTRL_PARITY)
+    _check('filter function against B^H B', identity, FF_IDENTITY)
+    _check('filter function against the explicit pulse', to_explicit,
+           OZAKI_CTRL_PARITY)
+    _check('correlated infidelity', to_infid, PARITY)
+    if not cross_min > 0:
+        raise AssertionError('a crosstalk operator does not correlate with '
+                             'its Z row')
+
+    # the card, with the crosstalk rows native, against the CPU
+    extra_native = numeric.calculate_control_matrix_from_scratch(
+        ext.eigvals, ext.eigvecs, ext.propagators, omega, ext.basis,
+        ext.n_opers[extra_rows], ext.n_coeffs[extra_rows], ext.dt, t=ext.t,
+        contract='native')
+    on_card = ctrl.clone()
+    on_card[extra_rows] = extra_native
+    cpu_parts, _, _, _ = _extend_parts('cpu')
+    for part in cpu_parts:
+        part.cache_filter_function(omega.cpu())
+    cpu = _extend(cpu_parts, extra).get_control_matrix(omega.cpu())
+    to_cpu = _rel(on_card.cpu(), cpu)
+    print(f'extend: the card with the crosstalk rows native against the '
+          f'CPU port {to_cpu:.3e} of the largest entry (bound {CPU_PARITY})')
+    _check('extend on the card against the CPU', to_cpu, CPU_PARITY)
+
+    dword.launches = 0
+    ms = _median_ms(lambda: _extend(parts, extra), N_TIMED)
+    timed_launches = dword.launches
+
+    def scratch():
+        explicit.cleanup('all')
+        explicit.get_control_matrix(omega)
+    ms_scratch = _median_ms(scratch, N_TIMED)
+    print(f'timing: extend {ms:.4f} ms per cold extend of the cached parts '
+          f'({timed_launches} launches in {N_TIMED} calls), explicit '
+          f'pulse\'s control matrix from scratch on the default route '
+          f'{ms_scratch:.4f} ms (median of {N_TIMED}); peak device memory of '
+          f'one extend {peak / 2**30:.2f} GiB [{card}]')
+    return ext, {'cache_filter_function (extend\'s two d = 4 parts)':
+                 part_launches,
+                 'extend (crosstalk rows from scratch, default route)':
+                 launches}
+
+
+def remap_extended(device, card, ext) -> dict:
+    """Phase 10b: remap of the extended pulse; returns the kernel's
+    launches."""
+    omega, _ = _omega_spectrum(device)
+    order = (2, 0, 3, 1)
+    dword.launches = 0
+    remapped = fft.remap(ext, order)
+    torch.cuda.synchronize()
+    launches = dword.launches
+    inv_perm = torch.as_tensor(np.argsort(
+        basis.remap_pauli_basis_elements(order, 4)), device=device)
+    ctrl = ext.get_control_matrix(omega)
+    got = remapped.get_control_matrix(omega)
+    equal = torch.equal(got, ctrl[:, inv_perm])
+    dims = [[2] * 4] * 2
+    opers = np.array_equal(remapped.n_opers, util.tensor_transpose(
+        ext.n_opers, order, dims)) and np.array_equal(
+        remapped.c_opers, util.tensor_transpose(ext.c_opers, order, dims))
+    native = _native_control_matrix(remapped, omega)
+    extra_ids = [i for i in remapped.n_oper_identifiers
+                 if i.startswith('ZZ')]
+    part_ids = [i for i in remapped.n_oper_identifiers
+                if i not in extra_ids]
+    rows, extra_rows = _rows(remapped, part_ids), _rows(remapped, extra_ids)
+    to_parts = _rel(got[rows], native[rows])
+    to_extra = _rel(got[extra_rows], native[extra_rows])
+    print(f'remap: extended pulse to qubit order {order} with {launches} '
+          f'dword_digits launches; cached control matrix equal to the index '
+          f'permutation of 10a\'s: {equal}; operators equal to '
+          f'tensor_transpose: {opers}; against its native control matrix '
+          f'from scratch: parts\' rows {to_parts:.3e} (bound '
+          f'{CONCAT_PARITY}), crosstalk rows {to_extra:.3e} (bound '
+          f'{OZAKI_CTRL_PARITY})')
+    if launches != 0 or not equal or not opers:
+        raise AssertionError('remap launched the kernel or is not the '
+                             'permutation of the extended pulse')
+    _check('remapped parts\' rows', to_parts, CONCAT_PARITY)
+    _check('remapped crosstalk rows', to_extra, OZAKI_CTRL_PARITY)
+    dword.launches = 0
+    ms = _median_ms(lambda: fft.remap(ext, order), N_TIMED)
+    print(f'timing: remap {ms:.4f} ms per remap of the cached extended '
+          f'pulse (median of {N_TIMED}, {dword.launches} launches) [{card}]')
+    return {'remap (extended pulse)': launches + dword.launches}
+
+
+def cpmg_family(device):
+    """Phase 10c's CPMG-8 family as batched PulseArrays on *device*, the
+    durations and the frequencies."""
+    n_pulses, n_omega, _, _ = SPECTRO_SHAPE
+    taus = np.geomspace(0.3, 30, n_pulses)
+    pulses = [dd.dd_pulse(8, tau=tau, tau_pi=1e-4, device='cpu')
+              for tau in taus]
+    base = functional.make_pulse_arrays(pulses[0])
+    p = base._replace(
+        c_coeffs=torch.from_numpy(np.stack([q.c_coeffs for q in pulses])),
+        n_coeffs=base.n_coeffs.expand(n_pulses, -1, -1),
+        dt=torch.from_numpy(np.stack([q.dt for q in pulses])))
+    p = functional.PulseArrays(*(x.to(device) for x in p))
+    omega = torch.from_numpy(np.geomspace(2e-1, 2e2, n_omega)).to(device)
+    return p, taus, omega
+
+
+def spectroscopy_cpmg(device, card) -> int:
+    """Phase 10c: noise spectroscopy on a CPMG-8 family; returns the
+    kernel's launches."""
+    n_pulses, _, n_nodes, n_steps = SPECTRO_SHAPE
+    p, taus, omega = cpmg_family(device)
+    dword.launches = 0
+
+    def design():
+        ffs = functional.fidelity_filter_function(p, omega)[:, 0, 0].real
+        return spectroscopy.design_matrix(ffs, omega, n_nodes=n_nodes)
+    a, nodes = design()
+    s_true = torch.from_numpy(1e-3 / nodes**0.7).to(device)
+    infids = a @ s_true
+
+    def solve():
+        return spectroscopy.reconstruct(a, infids, ridge=1e-10,
+                                        n_steps=n_steps)
+    s_hat = solve()
+    torch.cuda.synchronize()
+    launches = dword.launches
+    spectrum = spectroscopy.interpolate_spectrum(s_true, nodes, omega)
+    idx = np.linspace(0, n_pulses - 1, 8).astype(int)
+    direct = torch.stack([fft.infidelity(
+        dd.dd_pulse(8, tau=taus[i], tau_pi=1e-4, device=device), spectrum,
+        omega)[0] for i in idx])
+    forward = _rel(infids[idx], direct)
+    residual = ((a @ s_hat - infids).abs() / infids.abs()).max().item()
+    interior = ((s_hat - s_true).abs() / s_true)[1:-2].max().item()
+    a_cpu, _ = spectroscopy.design_matrix(
+        functional.fidelity_filter_function(
+            functional.PulseArrays(*(x.cpu() for x in p)), omega.cpu())
+        [:, 0, 0].real, omega.cpu(), n_nodes=n_nodes)
+    s_cpu = spectroscopy.reconstruct(a_cpu, a_cpu @ s_true.cpu(),
+                                     ridge=1e-10, n_steps=n_steps)
+    to_cpu = _rel(s_hat.cpu(), s_cpu)
+    print(f'spectroscopy: CPMG-8 at {n_pulses} durations, {len(omega)} '
+          f'frequencies, {n_nodes} nodes, {n_steps} FISTA steps: A s against '
+          f'fft.infidelity on 8 pulses {forward:.3e} relative (bound 1e-10); '
+          f'min s_hat {s_hat.min().item():.3e}; forward residual '
+          f'{residual:.3e} (bound 1e-3); interior nodes {interior:.3e} '
+          f'(bound 0.15); card against the CPU port {to_cpu:.3e} of the '
+          f'largest node (bound {S_HAT_PARITY}); {launches} dword_digits '
+          'launches')
+    _check('A s against the infidelities', forward, 1e-10)
+    if not (s_hat >= 0).all():
+        raise AssertionError('the reconstruction is negative')
+    _check('forward residual', residual, 1e-3)
+    _check('interior nodes', interior, 0.15)
+    _check('reconstruction on the card against the CPU', to_cpu,
+           S_HAT_PARITY)
+    ms_design = _median_ms(design, N_TIMED)
+    ms_solve = _median_ms(solve, N_TIMED)
+    print(f'timing: spectroscopy design matrix {ms_design:.4f} ms (filter '
+          f'functions of {n_pulses} pulses and the trapezoid), solve '
+          f'{ms_solve:.4f} ms ({n_steps} steps; median of {N_TIMED}) [{card}]')
+    return launches
+
+
+def exchange_cnot(device, card) -> int:
+    """Phase 10d: the exchange model on a .mat file written here; returns
+    the kernel's launches."""
+    exchange_ops, gradient_ops = exchange.heisenberg_operators(4)
+    rng = np.random.default_rng(9)
+    with tempfile.TemporaryDirectory() as tmp:
+        from scipy import io
+        path = Path(tmp) / 'cnot.mat'
+        io.savemat(str(path), {
+            'eps': rng.normal(0, 1, (3, CNOT_SEGMENTS)),
+            't': 0.5 + rng.random(CNOT_SEGMENTS),
+            'B': rng.normal(0, 1, 3)})
+        pulses = {dev: exchange.cnot_pulse(str(path), device=dev)
+                  for dev in (device, 'cpu')}
+    infids = {}
+    dword.launches = 0
+    for dev, pulse in pulses.items():
+        pulse.basis = exchange.qubit_subspace_basis()
+        pulse.d = 4
+        omega = np.geomspace(1 / pulse.tau, 1e2, 250)
+        infids[dev] = fft.infidelity(pulse, exchange.dial_spectrum(omega),
+                                     omega, ['eps_12', 'eps_23', 'eps_34'])
+        if dev == device:
+            torch.cuda.synchronize()
+            launches = dword.launches
+    rel = ((infids[device].cpu() - infids['cpu']).abs()
+           / infids['cpu'].abs()).max().item()
+    print(f'exchange: heisenberg_operators(4) {exchange_ops.shape} + '
+          f'{gradient_ops.shape}; cnot_pulse on a .mat of {CNOT_SEGMENTS} '
+          f'random segments (default_rng(9); not the published pulse), d = '
+          f'6 (K = 36 x {CNOT_SEGMENTS} = {36 * CNOT_SEGMENTS}): infidelity '
+          f'in qubit_subspace_basis() under the Dial spectrum '
+          f'{infids[device].cpu().numpy()} against the CPU port '
+          f'{rel:.3e} relative (bound 1e-12); {launches} dword_digits '
+          f'launches on the card')
+    _check('cnot_pulse on the card against the CPU', rel, CPU_PARITY)
+    return launches
 
 
 if __name__ == '__main__':

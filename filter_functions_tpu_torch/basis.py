@@ -6,11 +6,14 @@ characteristics (hermiticity, orthonormality, ...) are computed there
 and cached, for dispatch decisions only.  :meth:`Basis.tensor` gives a
 complex128 copy on a device, cached per device.
 
-The Pauli structure constants and the Pauli index maps come with
-``remap`` and ``extend``.
+The Pauli structure constants (:meth:`Basis.pauli_mult_table`) and the
+index maps of :func:`equivalent_pauli_basis_elements` and
+:func:`remap_pauli_basis_elements` are exact host-side integer
+arithmetic; ``extend`` and ``remap`` index device tensors with them.
 """
 from __future__ import annotations
 
+import functools
 from itertools import product as iproduct
 from typing import Dict, Optional, Sequence, Tuple, Union
 from warnings import warn
@@ -20,7 +23,8 @@ import torch
 
 from . import config, util
 
-__all__ = ['Basis', 'expand', 'ggm_expand', 'normalize']
+__all__ = ['Basis', 'expand', 'ggm_expand', 'normalize',
+           'equivalent_pauli_basis_elements', 'remap_pauli_basis_elements']
 
 
 def _frobenius_norm(arr: np.ndarray) -> np.ndarray:
@@ -252,6 +256,16 @@ class Basis:
                              optimize=True)
         return self._cached('four_element_traces', compute)
 
+    def pauli_mult_table(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Structure constants of a normalized n-qubit Pauli basis:
+        ``(index, phase)`` with ``C_a C_b = phase[a, b] / sqrt(d)
+        C_{index[a, b]}``, int64 and unit-modulus complex128 host
+        arrays."""
+        if self.btype != 'Pauli':
+            raise ValueError('Structure-constant table only available for '
+                             'Pauli bases')
+        return _pauli_mult_table(int(round(np.log2(self.d))))
+
     # -- expansion -------------------------------------------------------------
     def expand(self, M, hermitian: bool = False, traceless: bool = False,
                tidyup: bool = False):
@@ -278,13 +292,13 @@ class Basis:
     def pauli(cls, n: int) -> 'Basis':
         r"""Normalized n-qubit Pauli basis {I, X, Y, Z}^{\otimes n}."""
         d = 2**n
-        elems = np.empty((4**n, d, d), dtype=complex)
-        for i, digits in enumerate(iproduct(range(4), repeat=n)):
-            m = np.ones((1, 1), dtype=complex)
-            for dig in digits:
-                m = np.kron(m, util.paulis[dig])
-            elems[i] = m
-        elems /= np.sqrt(d)
+        # element (d_0 ... d_{n-1}) = P_{d_0} x ... x P_{d_{n-1}}, the
+        # first digit most significant; one outer product per qubit
+        elems = np.ones((1, 1, 1), dtype=complex)
+        for k in range(n):
+            elems = np.einsum('aij,bkl->abikjl', elems, util.paulis).reshape(
+                4**(k + 1), 2**(k + 1), 2**(k + 1))
+        elems = elems / np.sqrt(d)
         labels = [''.join('IXYZ'[dig] for dig in digits)
                   for digits in iproduct(range(4), repeat=n)]
         return cls(elems, btype='Pauli', labels=labels, skip_checks=True)
@@ -470,3 +484,61 @@ def ggm_expand(M, traceless: bool = False, hermitian: bool = False,
     if tidyup:
         coeffs = util.remove_float_errors(coeffs)
     return coeffs
+
+
+# -----------------------------------------------------------------------------
+# Pauli structure constants and index maps (host-side, exact)
+# -----------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _pauli_mult_table_1q() -> Tuple[np.ndarray, np.ndarray]:
+    """Single-qubit table: P_a P_b = phase[a, b] P_{index[a, b]} for the
+    unnormalized Paulis."""
+    idx = np.zeros((4, 4), dtype=np.int64)
+    phase = np.zeros((4, 4), dtype=complex)
+    p = util.paulis
+    for a in range(4):
+        for b in range(4):
+            prod = p[a] @ p[b]
+            for c in range(4):
+                ip = np.trace(p[c].conj().T @ prod) / 2
+                if abs(ip) > 0.5:
+                    idx[a, b] = c
+                    phase[a, b] = ip
+                    break
+    return idx, phase
+
+
+@functools.lru_cache(maxsize=None)
+def _pauli_mult_table(n_qubits: int) -> Tuple[np.ndarray, np.ndarray]:
+    """n-qubit table: index (4^n, 4^n) int64 and phase (4^n, 4^n)
+    complex128 with ``C_a C_b = phase[a, b] / sqrt(d) C_{index[a, b]}``
+    for the normalized basis."""
+    idx1, ph1 = _pauli_mult_table_1q()
+    digits = np.array(list(iproduct(range(4), repeat=n_qubits)))  # (n, nq)
+    a_dig = digits[:, None, :]
+    b_dig = digits[None, :, :]
+    phase = ph1[a_dig, b_dig].prod(axis=-1)
+    weights = 4 ** np.arange(n_qubits - 1, -1, -1)
+    index = (idx1[a_dig, b_dig] * weights).sum(axis=-1)
+    return index.astype(np.int64), phase
+
+
+def equivalent_pauli_basis_elements(idx, N: int) -> np.ndarray:
+    """Indices of the N-qubit Pauli elements that act as the identity
+    on every qubit outside *idx*, in the order of the Pauli basis of the
+    qubits *idx* (sorted)."""
+    idx = [idx] if isinstance(idx, (int, np.integer)) else list(idx)
+    ranges = [range(4) if i in idx else [0] for i in range(N)]
+    weights = 4 ** np.arange(N - 1, -1, -1)
+    return np.array([int(np.dot(digits, weights))
+                     for digits in iproduct(*ranges)])
+
+
+def remap_pauli_basis_elements(order: Sequence[int], N: int) -> np.ndarray:
+    """Index permutation of the N-qubit Pauli basis under the qubit
+    permutation *order*: element ``lin`` maps to ``out[lin]``."""
+    weights = 4 ** np.arange(N - 1, -1, -1)
+    out = np.empty(4**N, dtype=np.int64)
+    for lin, digits in enumerate(iproduct(range(4), repeat=N)):
+        out[lin] = int(np.dot([digits[order[i]] for i in range(N)], weights))
+    return out

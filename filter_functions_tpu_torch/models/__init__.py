@@ -6,8 +6,12 @@
   4-qubit instance is the flagship workload.
 * :mod:`.rb` -- single-qubit Clifford pulses and randomized-benchmarking
   sequences.
+* :mod:`.exchange` -- exchange-coupled spin-qubit chains, the Dial
+  1/f^alpha charge-noise spectrum, and the 4-spin CNOT pulse built from
+  a ``CNOT.mat`` file.
 """
-from . import dd, qft, rb
+from . import dd, exchange, qft, rb
 from .qft import qft_pulse_arrays, qft_pulse_sequence
 
-__all__ = ['dd', 'qft', 'rb', 'qft_pulse_arrays', 'qft_pulse_sequence']
+__all__ = ['dd', 'exchange', 'qft', 'rb', 'qft_pulse_arrays',
+           'qft_pulse_sequence']

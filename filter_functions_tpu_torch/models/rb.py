@@ -211,7 +211,7 @@ def batched_rb_infidelities(indices, omega, spectrum, tau: float = 1.0,
     spectrum = torch.as_tensor(spectrum, dtype=config.REAL, device=device)
 
     n_seq, n_cliff = indices.shape
-    q_cum = util.adot(liou[indices[:, :-1]], dim=1)   # (S, L-1, d2, d2)
+    q_cum = util.adot(liou[indices[:, :-1]], axis=1)   # (S, L-1, d2, d2)
     # equal pulse durations: boundary phases e^{i w g tau}
     steps = torch.arange(1, n_cliff, dtype=config.REAL, device=device)
     phases = util.cexp(steps[:, None] * tau * omega)        # (L-1, n_w)

@@ -129,16 +129,17 @@ class _DegeneratePropagator(torch.autograd.Function):
         return _degenerate_grad(coeff, w, v), None, None, None
 
 
-def diagonalize(h: torch.Tensor, dt: torch.Tensor
+def diagonalize(hamiltonian: torch.Tensor, dt: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Eigendecomposition of a piecewise-constant Hamiltonian h (G, d, d)
+    """Eigendecomposition of a piecewise-constant Hamiltonian (G, d, d)
     with segment durations dt (G,), and its cumulative propagators.
 
     Returns eigvals (G, d), eigvecs (G, d, d) and propagators
-    (G+1, d, d) with Q_0 the identity.  Differentiable in h
-    (:class:`_Eigh`, with the degenerate-eigenspace terms of the
-    propagators from :class:`_DegeneratePropagator`).
+    (G+1, d, d) with Q_0 the identity.  Differentiable in the
+    Hamiltonian (:class:`_Eigh`, with the degenerate-eigenspace terms of
+    the propagators from :class:`_DegeneratePropagator`).
     """
+    h = hamiltonian
     d = h.shape[-1]
     eigvals, eigvecs = _Eigh.apply(h)
     phase = util.cexp(-dt[..., None] * eigvals)                 # e^{-i D dt}
@@ -146,7 +147,7 @@ def diagonalize(h: torch.Tensor, dt: torch.Tensor
     if torch.is_grad_enabled() and h.requires_grad:
         piecewise = piecewise + _DegeneratePropagator.apply(
             h, eigvals.detach(), eigvecs.detach(), dt.detach())
-    cumulative = util.adot(piecewise, dim=-3)
+    cumulative = util.adot(piecewise, axis=-3)
     ident = torch.eye(d, dtype=h.dtype, device=h.device).expand(
         *h.shape[:-3], 1, d, d)
     return eigvals, eigvecs, torch.cat([ident, cumulative], dim=-3)

@@ -11,8 +11,9 @@ explicitly.  The three caches (``_data`` / ``_frequency_data`` /
 ``_intermediates``), their invalidation when omega changes and the
 ``cleanup`` tiers follow the JAX package.
 
-``a @ b`` concatenates in time (:func:`.sequencing.concatenate`, which
-this module re-exports with its siblings).
+``a @ b`` concatenates in time (:func:`.sequencing.concatenate`).  This
+module re-exports the composition functions of :mod:`.sequencing`, as
+the JAX package's does.
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ from .basis import Basis
 from .superoperator import liouville_representation
 from .types import Coefficients, Device, Hamiltonian
 
-__all__ = ['PulseSequence']
+__all__ = ['PulseSequence', 'concatenate', 'concatenate_periodic', 'extend',
+           'remap', 'concatenate_without_filter_function']
 
 
 def _parse_hamiltonian(H, n_dt: int, H_str: str):
@@ -744,4 +746,4 @@ class PulseSequence:
 # The sequencing API, defined in .sequencing; imported last because that
 # module imports this one.
 from .sequencing import (concatenate, concatenate_periodic,  # noqa: E402
-                         concatenate_without_filter_function)
+                         concatenate_without_filter_function, extend, remap)

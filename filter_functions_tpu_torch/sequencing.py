@@ -1,13 +1,16 @@
-"""Pulse composition in time (counterpart of the concatenation half of
-``filter_functions_tpu.sequencing``): :func:`concatenate`,
-:func:`concatenate_periodic` and
-:func:`concatenate_without_filter_function`.
+"""Pulse composition (counterpart of ``filter_functions_tpu.sequencing``):
+in time, :func:`concatenate`, :func:`concatenate_periodic` and
+:func:`concatenate_without_filter_function`; in space, :func:`remap`
+(permute the qubits of a pulse) and :func:`extend` (map pulses onto a
+larger register).
 
 The identifier and hash bookkeeping is host-side string and index
 logic on numpy arrays; it decides which cached control matrices are
 reused.  The array math (boundary phases, cumulative propagators, the
 sum over atomic control matrices, the closed-form periodic series) runs
-on the pulses' device through :mod:`.numeric`.
+on the pulses' device through :mod:`.numeric`.  ``remap`` and ``extend``
+carry the cached eigendecompositions, propagators and control matrices
+over by tensor-product index arithmetic on the device.
 
 Long trains repeat few pulse objects.  All bookkeeping is therefore done
 once per distinct object (keyed by ``id``), and the per-position stacks
@@ -18,19 +21,22 @@ from __future__ import annotations
 
 import bisect
 import copy as _copy
+import math
 from itertools import accumulate
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence
 from warnings import warn
 
 import numpy as np
 import torch
 
-from . import numeric, util
-from .pulse_sequence import PulseSequence
-from .types import Coefficients
+from . import config, numeric, util
+from .basis import (Basis, equivalent_pauli_basis_elements,
+                    remap_pauli_basis_elements)
+from .pulse_sequence import PulseSequence, _parse_hamiltonian
+from .types import Coefficients, Hamiltonian, PulseMapping
 
 __all__ = ['concatenate', 'concatenate_periodic',
-           'concatenate_without_filter_function']
+           'concatenate_without_filter_function', 'extend', 'remap']
 
 
 # -----------------------------------------------------------------------------
@@ -580,4 +586,455 @@ def concatenate_periodic(pulse: PulseSequence, repeats: int,
     newpulse = _uniform_newpulse(pulse, repeats)
     if pulse.is_cached('control_matrix'):
         _cache_periodic(newpulse, pulse, repeats, pulse.omega)
+    return newpulse
+
+
+# -----------------------------------------------------------------------------
+# remap / extend: composition in space
+# -----------------------------------------------------------------------------
+def _map_identifiers(identifiers, mapping):
+    """(remapped identifiers, the order that sorts them)."""
+    if mapping is None:
+        return np.asarray(identifiers), np.arange(len(identifiers))
+    remapped = np.array([mapping[i] for i in identifiers])
+    return remapped, np.argsort(remapped)
+
+
+def _default_extend_mapping(identifiers, mapping, qubits):
+    """The identifier mapping of extend: *mapping* if given, else the
+    target qubit indices appended, ``'X'`` on qubits (0, 2) -> ``'X_02'``."""
+    if mapping is not None:
+        return identifiers, mapping
+    try:
+        suffix = ('{}' * len(qubits)).format(*qubits)
+    except TypeError:
+        suffix = f'{qubits}'
+    return identifiers, {q: f'{q}_{suffix}' for q in identifiers}
+
+
+def remap(pulse: PulseSequence, order: Sequence[int], d_per_qubit: int = 2,
+          oper_identifier_mapping: Optional[Mapping[str, str]] = None
+          ) -> PulseSequence:
+    """Permute the qubits of *pulse* into *order*, keeping its caches.
+
+    Operators and cached eigendecompositions and propagators are
+    permuted by :func:`.util.tensor_transpose`, the cached filter
+    function by the identifier order.  The cached control matrix and
+    total Liouville propagator are permuted by index on the device,
+    which needs a Pauli basis: for another basis they are dropped with a
+    warning.  The new pulse lives on *pulse*'s device.
+    """
+    n_qubits = int(round(np.log(pulse.d) / np.log(d_per_qubit)))
+    dims = [[d_per_qubit] * n_qubits] * 2
+
+    c_opers = util.tensor_transpose(pulse.c_opers, order, dims)
+    n_opers = util.tensor_transpose(pulse.n_opers, order, dims)
+    c_ids, c_sort = _map_identifiers(pulse.c_oper_identifiers,
+                                     oper_identifier_mapping)
+    n_ids, n_sort = _map_identifiers(pulse.n_oper_identifiers,
+                                     oper_identifier_mapping)
+
+    remapped = PulseSequence.from_arrays(
+        c_opers=c_opers[c_sort], n_opers=n_opers[n_sort],
+        c_oper_identifiers=c_ids[c_sort], n_oper_identifiers=n_ids[n_sort],
+        c_coeffs=pulse.c_coeffs[c_sort], n_coeffs=pulse.n_coeffs[n_sort],
+        dt=pulse.dt, basis=pulse.basis, device=pulse.device)
+    if 't' in pulse.data:
+        remapped.t = pulse.t
+    if 'tau' in pulse.data:
+        remapped.tau = pulse.tau
+
+    if pulse.is_cached('eigvals'):
+        remapped.eigvals = util.tensor_transpose(
+            pulse.eigvals, order, [[d_per_qubit] * n_qubits], rank=1)
+    for attr in ('eigvecs', 'propagators', 'total_propagator'):
+        if pulse.is_cached(attr):
+            setattr(remapped, attr,
+                    util.tensor_transpose(getattr(pulse, attr), order, dims))
+
+    if not pulse.is_cached('omega'):
+        return remapped
+    omega = pulse.omega
+    sort = torch.as_tensor(n_sort, device=pulse.device)
+    if pulse.is_cached('total_phases'):
+        remapped.cache_total_phases(omega, pulse.get_total_phases(omega))
+    if pulse.is_cached('filter_function'):
+        remapped.cache_filter_function(
+            omega, filter_function=pulse.get_filter_function(
+                omega)[sort][:, sort])
+
+    if pulse.is_cached('total_propagator_liouville') \
+            or pulse.is_cached('control_matrix'):
+        if pulse.basis.btype != 'Pauli':
+            warn('pulse does not have a separable basis which is needed to '
+                 'retain cached control matrices.')
+            return remapped
+        # new[a, k] = old[n_sort[a], inv_perm[k]]
+        inv_perm = torch.as_tensor(
+            np.argsort(remap_pauli_basis_elements(order, n_qubits)),
+            device=pulse.device)
+        if pulse.is_cached('total_propagator_liouville'):
+            remapped.total_propagator_liouville = \
+                pulse.total_propagator_liouville[inv_perm][:, inv_perm]
+        if pulse.is_cached('control_matrix'):
+            remapped.cache_control_matrix(
+                omega, pulse.get_control_matrix(omega)[sort][:, inv_perm])
+    return remapped
+
+
+def _tensor_chain_merge(old_attrs, new_attrs, d_per_qubit, registers,
+                        qubits):
+    """Merge each new attribute into the growing tensor chain at the
+    register positions of *qubits*."""
+    if registers is None:
+        return new_attrs, list(qubits)
+    pos = [bisect.bisect(registers, q) for q in qubits]
+    merged = [util.tensor_merge(old, new, pos=pos,
+                                arr_dims=[[d_per_qubit] * len(registers)] * 2,
+                                ins_dims=[[d_per_qubit] * len(pos)] * 2)
+              for old, new in zip(old_attrs, new_attrs)]
+    for q in qubits:
+        bisect.insort(registers, q)
+    return merged, registers
+
+
+def _tensor_chain_insert(old_attrs, new_attrs, d_per_qubit, registers,
+                         qubit):
+    """Insert each new attribute into the chain at the register position
+    of the single *qubit*."""
+    if registers is None:
+        return new_attrs, [qubit]
+    pos = bisect.bisect(registers, qubit)
+    inserted = [util.tensor_insert(
+        old, new, pos=pos, arr_dims=[[d_per_qubit] * len(registers)] * 2)
+        for old, new in zip(old_attrs, new_attrs)]
+    bisect.insort(registers, qubit)
+    return inserted, registers
+
+
+def extend(pulse_to_qubit_mapping: PulseMapping, N: Optional[int] = None,
+           d_per_qubit: int = 2,
+           additional_noise_Hamiltonian: Optional[Hamiltonian] = None,
+           cache_diagonalization: Optional[bool] = None,
+           cache_filter_function: Optional[bool] = None,
+           omega: Optional[Coefficients] = None,
+           show_progressbar: bool = False) -> PulseSequence:
+    r"""Map pulses onto (subsets of) a register of *N* qubits.
+
+    *pulse_to_qubit_mapping* holds ``(pulse, qubit or qubits[,
+    identifier mapping])`` entries; a pulse on unsorted qubits is
+    :func:`remap`\ ped first.  Identifiers get the target qubits
+    appended unless a mapping is given.  *additional_noise_Hamiltonian*
+    adds noise operators of the whole register.
+
+    The new pulse lives on the device of its parts.  For Pauli bases
+    the cached diagonalizations (or total propagators) are tensored
+    together on the device, and the cached control matrices scattered
+    into one control matrix of the register: the rows of each part at
+    the Pauli elements that act on its qubits, times sqrt(s), s =
+    d_per_qubit^(N - n).  The rows of the additional noise operators
+    are computed from scratch (:func:`.numeric.
+    calculate_control_matrix_from_scratch`, on CUDA the deep factored
+    route).  The cached filter function is that of the complete control
+    matrix, cross terms between parts and additional operators
+    included.  Other bases are diagonalized and computed from scratch.
+
+    *cache_diagonalization* and *cache_filter_function* default to
+    whether every part has them cached (and one frequency grid); the
+    filter function needs the diagonalization when there are additional
+    noise operators.
+    """
+    # ---- parse mapping ----
+    single_pulses, single_idx, single_maps = [], [], []
+    multi_pulses, multi_idx, multi_maps = [], [], []
+    active: List[int] = []
+    for entry in pulse_to_qubit_mapping:
+        pulse, qubit = entry[0], entry[1]
+        id_mapping = entry[2] if len(entry) > 2 else None
+        if util.is_sequence_like(qubit) and not isinstance(
+                qubit, (int, np.integer)):
+            qubit = tuple(int(q) for q in qubit)
+            active.extend(qubit)
+            if len(qubit) == 1:
+                single_idx.append(qubit[0])
+                single_pulses.append(pulse)
+                single_maps.append(id_mapping)
+                continue
+            sorted_qubit, order = zip(*sorted(zip(qubit, range(len(qubit)))))
+            if qubit == sorted_qubit:
+                sorted_pulse = pulse
+            else:
+                try:
+                    sorted_pulse = remap(pulse, order, d_per_qubit)
+                except ValueError as err:
+                    raise ValueError(f'Could not remap {pulse!r} mapped to '
+                                     f'qubits {qubit}. Do the dimensions '
+                                     'match?') from err
+            multi_idx.append(list(sorted_qubit))
+            multi_pulses.append(sorted_pulse)
+            multi_maps.append(id_mapping)
+        else:
+            active.append(int(qubit))
+            single_idx.append(int(qubit))
+            single_pulses.append(pulse)
+            single_maps.append(id_mapping)
+
+    if not all(p.d == d_per_qubit for p in single_pulses):
+        raise ValueError('Not all single-qubit pulses have dimension '
+                         f'd_per_qubit = {d_per_qubit}.')
+    if not all(p.d == d_per_qubit**len(q)
+               for p, q in zip(multi_pulses, multi_idx)):
+        raise ValueError('Not all multi-qubit pulses have correct '
+                         'dimension!')
+
+    pulses = multi_pulses + single_pulses
+    idx = multi_idx + single_idx
+    if len({p.device for p in pulses}) != 1:
+        raise ValueError('Trying to extend PulseSequence instances on '
+                         'different devices!')
+    device = pulses[0].device
+    if not util.all_array_equal((p.dt for p in pulses)):
+        raise ValueError('All pulses should be defined on the same time '
+                         'steps')
+    active_set = set(active)
+    if len(active_set) != len(active):
+        raise ValueError('Qubit clash: multiple pulses mapped to same '
+                         'qubit!')
+    last_qubit = max(active_set)
+    if N is None:
+        N = last_qubit + 1
+    elif last_qubit + 1 > N:
+        raise ValueError('Number of qubits N smaller than highest qubit '
+                         f'index + 1 = {last_qubit + 1}')
+
+    if len(pulse_to_qubit_mapping) == 1:
+        if multi_idx and N == len(multi_idx[0]):
+            warn('Single multi-qubit pulse given and mapped to its '
+                 'original qubits. Returning the same.')
+            return multi_pulses[0]
+        if single_idx and N == 1:
+            warn('Single single-qubit pulse given and mapped to its '
+                 'original qubit. Returning the same.')
+            return single_pulses[0]
+
+    # ---- decide what to cache ----
+    if cache_filter_function is not False:
+        have_ctrl = all(p.is_cached('control_matrix') for p in pulses)
+        try:
+            equal_omega = util.all_array_equal((p.omega for p in pulses))
+        except (AttributeError, TypeError):
+            equal_omega = False
+        if cache_filter_function is None:
+            cache_filter_function = have_ctrl and equal_omega
+            if cache_filter_function:
+                omega = pulses[0].omega
+        elif omega is None:
+            if not equal_omega:
+                raise ValueError('Filter function should be cached but '
+                                 'omega was not provided and could not be '
+                                 'inferred.')
+            omega = pulses[0].omega
+
+    if cache_diagonalization is None:
+        if cache_filter_function and additional_noise_Hamiltonian is not None:
+            cache_diagonalization = True
+        else:
+            cache_diagonalization = all(
+                p.is_cached(attr) for attr in ('eigvals', 'eigvecs',
+                                               'propagators')
+                for p in pulses)
+    elif not cache_diagonalization \
+            and additional_noise_Hamiltonian is not None:
+        raise ValueError('Additional noise Hamiltonian given and '
+                         'cache_diagonalization set to False but required.')
+
+    # ---- extended operators (host) ----
+    all_qubits = set(range(N))
+    d = d_per_qubit**N
+    n_dt = len(pulses[0].dt)
+    ident = np.identity(d_per_qubit)
+
+    c_opers, c_ids, c_coeffs = [], [], []
+    n_opers, n_ids, n_coeffs = [], [], []
+    for pulse, qubits, id_map in zip(multi_pulses, multi_idx, multi_maps):
+        pos = [bisect.bisect(qubits, q)
+               for q in sorted(all_qubits.difference(qubits))]
+        c_id, _ = _map_identifiers(*_default_extend_mapping(
+            pulse.c_oper_identifiers, id_map, qubits))
+        n_id, _ = _map_identifiers(*_default_extend_mapping(
+            pulse.n_oper_identifiers, id_map, qubits))
+        c_ids.extend(c_id)
+        n_ids.extend(n_id)
+        arr_dims = [[d_per_qubit] * len(qubits)] * 2
+        c_opers.extend(util.tensor_insert(
+            pulse.c_opers, *[ident] * len(pos), pos=pos, arr_dims=arr_dims))
+        n_opers.extend(util.tensor_insert(
+            pulse.n_opers, *[ident] * len(pos), pos=pos, arr_dims=arr_dims))
+        c_coeffs.extend(pulse.c_coeffs)
+        n_coeffs.extend(pulse.n_coeffs)
+
+    for pulse, qubit, id_map in zip(single_pulses, single_idx, single_maps):
+        pre = [np.identity(d_per_qubit**qubit)] if qubit > 0 else []
+        post = [np.identity(d_per_qubit**(N - qubit - 1))] \
+            if qubit < N - 1 else []
+        c_id, _ = _map_identifiers(*_default_extend_mapping(
+            pulse.c_oper_identifiers, id_map, qubit))
+        n_id, _ = _map_identifiers(*_default_extend_mapping(
+            pulse.n_oper_identifiers, id_map, qubit))
+        c_ids.extend(c_id)
+        n_ids.extend(n_id)
+        c_opers.extend(util.tensor(*(pre + [pulse.c_opers] + post)))
+        n_opers.extend(util.tensor(*(pre + [pulse.n_opers] + post)))
+        c_coeffs.extend(pulse.c_coeffs)
+        n_coeffs.extend(pulse.n_coeffs)
+
+    n_from_pulses = len(n_ids)
+    if additional_noise_Hamiltonian is not None:
+        add_opers, add_ids, add_coeffs = _parse_hamiltonian(
+            additional_noise_Hamiltonian, n_dt, 'H_n')
+        if add_opers.shape[1:] != (d, d):
+            raise ValueError('Expected additional noise operators to have '
+                             f'dimensions {(d, d)}, not '
+                             f'{add_opers.shape[1:]}.')
+        clash = set(n_ids).intersection(add_ids)
+        if clash:
+            raise ValueError('Found duplicate noise operator identifiers: '
+                             f'{clash}')
+        n_opers.extend(add_opers)
+        n_coeffs.extend(add_coeffs)
+        n_ids.extend(add_ids)
+
+    btypes = {p.basis.btype for p in pulses}
+    if len(btypes) != 1:
+        warn('Not all pulses had the same basis type. Cannot retain cached '
+             'control matrices.')
+        new_basis = Basis.ggm(d)
+    elif btypes == {'GGM'}:
+        warn('Original pulses had GGM basis which is not separable into a '
+             'tensor product. Cannot retain cached control matrices.')
+        new_basis = Basis.ggm(d)
+    elif btypes == {'Pauli'}:
+        new_basis = Basis.pauli(N)
+    else:
+        warn('Original pulses had custom basis which I cannot extend.')
+        new_basis = Basis.ggm(d)
+
+    c_sort = np.argsort(c_ids)
+    n_sort = np.argsort(n_ids)
+    newpulse = PulseSequence.from_arrays(
+        c_opers=np.asarray(c_opers)[c_sort],
+        n_opers=np.asarray(n_opers)[n_sort],
+        c_oper_identifiers=np.asarray(c_ids)[c_sort],
+        n_oper_identifiers=np.asarray(n_ids)[n_sort],
+        c_coeffs=np.asarray(c_coeffs)[c_sort],
+        n_coeffs=np.asarray(n_coeffs)[n_sort],
+        dt=pulses[0].dt, basis=new_basis, device=device)
+    if 't' in pulses[0].data:
+        newpulse.t = pulses[0].t
+    if 'tau' in pulses[0].data:
+        newpulse.tau = pulses[0].tau
+
+    if newpulse.basis.btype != 'Pauli':
+        if cache_diagonalization:
+            newpulse.diagonalize()
+        if cache_filter_function:
+            newpulse.cache_filter_function(omega)
+        return newpulse
+
+    # ---- tensor the cached diagonalizations together (device) ----
+    id_idx = sorted(all_qubits.difference(active_set))
+    filler = torch.eye(d_per_qubit**len(id_idx), dtype=config.COMPLEX,
+                       device=device)
+    if cache_diagonalization:
+        # a Kronecker sum: not in ascending order, and nothing downstream
+        # needs it to be
+        eigvals = torch.zeros((n_dt, d), dtype=config.REAL, device=device)
+        attrs = [None, None]            # eigvecs, propagators
+        registers = None
+        for pulse, qubits in zip(multi_pulses, multi_idx):
+            hd_pos = [bisect.bisect(qubits, q)
+                      for q in sorted(all_qubits.difference(qubits))]
+            eigvals = eigvals + util.tensor_insert(
+                pulse.eigvals, *np.ones((len(hd_pos), d_per_qubit)),
+                pos=hd_pos, rank=1, arr_dims=[[d_per_qubit] * len(qubits)])
+            attrs, registers = _tensor_chain_merge(
+                attrs, [pulse.eigvecs, pulse.propagators], d_per_qubit,
+                registers, qubits)
+        for pulse, qubit in zip(single_pulses, single_idx):
+            pre = [np.ones(d_per_qubit**qubit)] if qubit > 0 else []
+            post = [np.ones(d_per_qubit**(N - qubit - 1))] \
+                if qubit < N - 1 else []
+            eigvals = eigvals + util.tensor(*(pre + [pulse.eigvals] + post),
+                                            rank=1)
+            attrs, registers = _tensor_chain_insert(
+                attrs, [pulse.eigvecs, pulse.propagators], d_per_qubit,
+                registers, qubit)
+        if id_idx:
+            attrs, registers = _tensor_chain_merge(
+                attrs, [filler, filler], d_per_qubit, registers, id_idx)
+        newpulse.eigvals = eigvals
+        newpulse.eigvecs = attrs[0]
+        newpulse.propagators = attrs[1]
+        newpulse.total_propagator = attrs[1][-1]
+    elif all(p.is_cached('total_propagator') for p in pulses):
+        attrs = [None]
+        registers = None
+        for pulse, qubits in zip(multi_pulses, multi_idx):
+            attrs, registers = _tensor_chain_merge(
+                attrs, [pulse.total_propagator], d_per_qubit, registers,
+                qubits)
+        for pulse, qubit in zip(single_pulses, single_idx):
+            attrs, registers = _tensor_chain_insert(
+                attrs, [pulse.total_propagator], d_per_qubit, registers,
+                qubit)
+        if id_idx:
+            attrs, registers = _tensor_chain_merge(
+                attrs, [filler], d_per_qubit, registers, id_idx)
+        newpulse.total_propagator = attrs[0]
+
+    if not cache_filter_function:
+        return newpulse
+
+    # ---- the control matrix of the register (device) ----
+    # only first-order quantities are extended; say so if a part carried
+    # more
+    dropped = sorted({
+        name for p in pulses for name, key in
+        (('second order filter function', 'filter_function_2'),
+         ('pulse correlation filter function', 'filter_function_pc'),
+         ('generalized pulse correlation filter function',
+          'filter_function_pc_gen'))
+        if p.is_cached(key)})
+    if dropped:
+        warn('extend() only extends first-order control matrices and '
+             'fidelity filter functions; cached ' + ', '.join(dropped)
+             + ' of the input pulses are discarded and must be recomputed '
+             'on the extended pulse.', UserWarning)
+    newpulse.omega = omega
+    omega = newpulse.omega
+    control_matrix = torch.zeros((len(n_ids), d * d, len(omega)),
+                                 dtype=config.COMPLEX, device=device)
+    counter = 0
+    for ind, pulse in zip(idx, pulses):
+        ind_list = [ind] if isinstance(ind, (int, np.integer)) else ind
+        rows = torch.arange(counter, counter + len(pulse.n_opers),
+                            device=device)
+        cols = torch.as_tensor(equivalent_pauli_basis_elements(ind_list, N),
+                               device=device)
+        counter += len(pulse.n_opers)
+        control_matrix.index_put_(
+            (rows[:, None], cols[None, :]),
+            pulse.get_control_matrix(omega, show_progressbar)
+            * math.sqrt(d_per_qubit**(N - len(ind_list))))
+    if additional_noise_Hamiltonian is not None:
+        inds = util.get_indices_from_identifiers(
+            newpulse.n_oper_identifiers, list(n_ids[n_from_pulses:]))
+        control_matrix[n_from_pulses:] = \
+            numeric.calculate_control_matrix_from_scratch(
+                newpulse.eigvals, newpulse.eigvecs, newpulse.propagators,
+                omega, newpulse.basis, newpulse.n_opers[inds],
+                newpulse.n_coeffs[inds], newpulse.dt, t=newpulse.t,
+                show_progressbar=show_progressbar)
+    newpulse.cache_filter_function(
+        omega, control_matrix[torch.as_tensor(n_sort, device=device)])
     return newpulse

@@ -3,8 +3,9 @@
 
 Host metadata (operators, coefficients, identifiers) stays numpy, as in
 the JAX package; the numerical helpers take tensors, or numpy arrays
-where the JAX package took them.  ``tensor_insert``, ``tensor_merge``
-and ``tensor_transpose`` come with ``extend`` and ``remap``.
+where the JAX package took them.  The tensor-product family
+(``tensor``, ``tensor_insert``, ``tensor_merge``, ``tensor_transpose``)
+takes both: numpy in, numpy out; a tensor keeps its device and dtype.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from . import config
 __all__ = ['paulis', 'abs2', 'all_array_equal', 'dot_HS',
            'get_sample_frequencies', 'hash_array_along_axis', 'mdot', 'adot',
            'matrix_power', 'geometric_series',
-           'oper_equiv', 'remove_float_errors', 'tensor', 'integrate',
+           'oper_equiv', 'remove_float_errors', 'tensor', 'tensor_insert',
+           'tensor_merge', 'tensor_transpose', 'integrate',
            'cexp', 'cexpm1', 'CalculationError', 'parse_optional_parameters',
            'parse_operators', 'parse_spectrum', 'is_sequence_like',
            'get_indices_from_identifiers', 'progressbar',
@@ -253,6 +255,179 @@ def tensor(*args, rank: int = 2):
     return items[0]
 
 
+def _einsum_any(subscripts: str, *ops):
+    """einsum of numpy arrays, or of tensors where one operand is a
+    tensor: the others join its device and the dtypes promote."""
+    device = next((o.device for o in ops if isinstance(o, torch.Tensor)),
+                  None)
+    if device is None:
+        return np.einsum(subscripts, *ops)
+    ops = [torch.as_tensor(o, device=device) for o in ops]
+    dtype = functools.reduce(torch.promote_types, (o.dtype for o in ops))
+    return torch.einsum(subscripts, *(o.to(dtype) for o in ops))
+
+
+def _atleast_rank(x, rank: int):
+    while x.ndim < rank:
+        x = x[None]
+    return x
+
+
+def _check_dims(name: str, dims, rank: int) -> None:
+    if len(dims) != rank:
+        raise ValueError(f'{name}_dims should be of length rank = {rank}, '
+                         f'not {len(dims)}')
+    if len({len(d) for d in dims}) != 1:
+        raise ValueError(f'Require all lists in {name}_dims to be of same '
+                         'length!')
+
+
+def _reshape(x, shape, name: str, rank: int):
+    """*x* reshaped, or the error of a *name*_dims that does not fit."""
+    try:
+        return x.reshape(shape)
+    except (ValueError, RuntimeError) as err:
+        raise ValueError(f'{name}_dims not compatible with {name}.shape'
+                         f'[-rank:] = {tuple(x.shape[-rank:])}') from err
+
+
+def tensor_insert(arr, *args, pos, arr_dims, rank: int = 2):
+    """Insert the factors *args* into the tensor-product chain *arr*,
+    whose factors have the dimensions *arr_dims* (one list per axis of
+    the product), at the positions *pos* (an int puts all of them
+    there).  Tensors stay on their device; numpy operands join it.
+
+    >>> import numpy as np
+    >>> I, X, Y, Z = paulis
+    >>> r = tensor_insert(tensor(X, I), Y, Z, pos=0,
+    ...                   arr_dims=[[2, 2], [2, 2]])
+    >>> bool(np.allclose(r, tensor(Y, Z, X, I)))
+    True
+    """
+    if len(args) == 0:
+        raise ValueError('Require nonzero number of args!')
+
+    if np.issubdtype(type(pos), np.integer):
+        pos = (int(pos),)
+        if len(args) > 1:
+            args = (tensor(*args, rank=rank),)
+    elif len(pos) != len(args):
+        raise ValueError('Expected pos to be either an int or a sequence of '
+                         'the same length as the number of args, not length '
+                         f'{len(pos)}')
+    _check_dims('arr', arr_dims, rank)
+
+    def insert_one(target, ins, dims, p):
+        nfac = len(dims[0])
+        ins_chars = string.ascii_letters[:rank]
+        arr_chars = string.ascii_letters[rank:(nfac + 1) * rank]
+        out = arr_chars[:p] + ''.join(
+            ins_chars[r] + arr_chars[p + r * nfac:p + (r + 1) * nfac]
+            for r in range(rank))
+        subscripts = f'...{ins_chars},...{arr_chars}->...{out}'
+        outshape = _kron_shape(ins.shape, target.shape, rank)
+        flat = [d for axis in dims for d in axis]
+        reshaped = target.reshape(*target.shape[:-rank], *flat)
+        return _einsum_any(subscripts, ins, reshaped).reshape(outshape)
+
+    result = arr
+    dims = [list(axis) for axis in arr_dims]
+    nfac = len(dims[0])
+    divs, mods = zip(*[divmod(p, nfac) if p != nfac else (0, p)
+                       for p in pos])
+    for shift, i in enumerate(sorted(range(len(args)),
+                                     key=lambda i: mods[i])):
+        if divs[i] not in (-1, 0):
+            raise IndexError(f'Invalid position {pos[i]} specified. Must be '
+                             f'between -{nfac} and {nfac}.')
+        p = mods[i] + shift
+        try:
+            result = insert_one(result, _atleast_rank(args[i], rank), dims, p)
+        except (ValueError, RuntimeError) as err:
+            raise ValueError(
+                f'Could not insert arg {i} with shape {tuple(result.shape)} '
+                f'into the array with shape {tuple(args[i].shape)} at '
+                f'position {mods[i]}.') from err
+        for axis, d in zip(dims, args[i].shape[-rank:]):
+            axis.insert(p, d)
+    return result
+
+
+def tensor_merge(arr, ins, pos, arr_dims, ins_dims, rank: int = 2):
+    """Merge the tensor-product chain *ins* (factor dimensions
+    *ins_dims*) into the chain *arr* (*arr_dims*), factor i of *ins*
+    before factor ``pos[i]`` of *arr*.  Tensors stay on their device;
+    numpy operands join it.
+
+    >>> import numpy as np
+    >>> I, X, Y, Z = paulis
+    >>> r = tensor_merge(tensor(X, Y, Z), tensor(I, I), pos=[1, 2],
+    ...                  arr_dims=[[2]*3, [2]*3], ins_dims=[[2]*2, [2]*2])
+    >>> bool(np.allclose(r, tensor(X, I, Y, I, Z)))
+    True
+    """
+    for name, dims in (('arr', arr_dims), ('ins', ins_dims)):
+        _check_dims(name, dims, rank)
+
+    n_ins = len(ins_dims[0])
+    n_arr = len(arr_dims[0])
+    ins_chars = string.ascii_letters[:n_ins * rank]
+    arr_chars = string.ascii_letters[n_ins * rank:(n_ins + n_arr) * rank]
+    out_chars = ''
+    for r in range(rank):
+        arr_part = arr_chars[r * n_arr:(r + 1) * n_arr]
+        ins_part = ins_chars[r * n_ins:(r + 1) * n_ins]
+        for i, (p, ch) in enumerate(sorted(zip(pos, ins_part))):
+            if p != n_arr:
+                div, p = divmod(p, n_arr)
+                if div not in (-1, 0):
+                    raise IndexError(f'Invalid position {pos[i]} specified. '
+                                     f'Must be between -{n_arr} and {n_arr}.')
+            arr_part = arr_part[:p + i] + ch + arr_part[p + i:]
+        out_chars += arr_part
+
+    subscripts = f'...{ins_chars},...{arr_chars}->...{out_chars}'
+    outshape = _kron_shape(ins.shape, arr.shape, rank)
+    ins_r = _reshape(ins, (*ins.shape[:-rank],
+                           *[d for axis in ins_dims for d in axis]),
+                     'ins', rank)
+    arr_r = _reshape(arr, (*arr.shape[:-rank],
+                           *[d for axis in arr_dims for d in axis]),
+                     'arr', rank)
+    return _einsum_any(subscripts, ins_r, arr_r).reshape(outshape)
+
+
+def tensor_transpose(arr, order: Sequence[int], arr_dims, rank: int = 2):
+    """Permute the factors of the tensor-product chain *arr* (factor
+    dimensions *arr_dims*) into *order*.  A tensor stays on its device.
+
+    >>> import numpy as np
+    >>> I, X, Y, Z = paulis
+    >>> r = tensor_transpose(tensor(X, Y, Z), [1, 2, 0],
+    ...                      arr_dims=[[2, 2, 2]]*2)
+    >>> bool(np.allclose(r, tensor(Y, Z, X)))
+    True
+    """
+    _check_dims('arr', arr_dims, rank)
+    nfac = len(arr_dims[0])
+    order = list(order)
+    if sorted(order) != list(range(nfac)):
+        if any(not np.issubdtype(type(o), np.integer) for o in order):
+            raise TypeError("Could not transpose the order. Are all elements "
+                            "of 'order' integers?")
+        raise ValueError("Could not transpose the order. Are all elements of "
+                         "'order' unique and match the array?")
+    n_lead = arr.ndim - rank
+    axes = (list(range(n_lead))
+            + [n_lead + r * nfac + o for r in range(rank) for o in order])
+    reshaped = _reshape(arr, (*arr.shape[:-rank],
+                              *[d for axis in arr_dims for d in axis]),
+                        'arr', rank)
+    transposed = (reshaped.permute(axes) if isinstance(reshaped, torch.Tensor)
+                  else reshaped.transpose(axes))
+    return transposed.reshape(arr.shape)
+
+
 # -----------------------------------------------------------------------------
 # Matrix products
 # -----------------------------------------------------------------------------
@@ -266,19 +441,19 @@ def mdot(arr, axis: int = 0):
     return functools.reduce(operator.matmul, mats)
 
 
-def adot(mats: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """Accumulated matrix product along *dim*:
-    ``out[g] = mats[g] @ mats[g-1] @ ... @ mats[0]``.
+def adot(arr: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Accumulated matrix product along *axis*:
+    ``out[g] = arr[g] @ arr[g-1] @ ... @ arr[0]``.
 
     A doubling scan, ``out[g] <- out[g] @ out[g - s]`` for s = 1, 2, 4,
     ...: log2 G batched products in place of G small ones, each a launch
     of its own.
     """
-    out, shift = mats.movedim(dim, 0), 1
+    out, shift = arr.movedim(axis, 0), 1
     while shift < out.shape[0]:
         out = torch.cat([out[:shift], out[shift:] @ out[:-shift]])
         shift *= 2
-    return out.movedim(0, dim)
+    return out.movedim(0, axis)
 
 
 def matrix_power(a: torch.Tensor, p: int) -> torch.Tensor:

@@ -1,0 +1,154 @@
+"""The port's API against the JAX package's, module by module: every
+module of filter_functions_tpu has its counterpart in
+filter_functions_tpu_torch with the same public names (``__all__`` and
+the public functions and classes the module defines), and every function
+and method there takes at least the JAX package's keyword parameters.
+
+What the port leaves out on purpose is listed below with its reason
+(ROADMAP.md, "What the port leaves out" and §2.3); what is still to port
+is listed apart.  Both lists must stay exact: an entry that the port has
+after all fails the test.
+"""
+import importlib
+import inspect
+import pkgutil
+
+import pytest
+
+import filter_functions_tpu as ff
+import filter_functions_tpu_torch as fft
+
+#: Modules (relative to the package) the port leaves out, with reasons.
+OMITTED_MODULES = {
+    'cplx': 'split (re, im) complex arithmetic for a backend without '
+            'complex128; the port computes in torch.complex128',
+    'ops.dword_pallas': 'the Pallas kernel; the port has its CUDA kernel '
+                        'in ops.dword and csrc/dword_digits.cu',
+}
+#: Modules still to port.
+TO_PORT_MODULES = {'parallel', 'parallel.optimize', 'parallel.sharding'}
+#: Public names a ported module leaves out, with reasons.
+OMITTED_NAMES = {
+    '': {'cplx': OMITTED_MODULES['cplx'], 'parallel': 'still to port'},
+    'config': {name: 'a setting of the TPU backend (precision emulation, '
+                     'host offload, compile cache) with no meaning on a GPU'
+               for name in ('backend', 'complex_dtype', 'device_memory_bytes',
+                            'eigh_mode', 'enable_host_cpu', 'eps',
+                            'float_dtype', 'host_device', 'on_host',
+                            'ozaki_escalation_tol', 'ozaki_factored',
+                            'ozaki_operand_dtype', 'supports_native_complex',
+                            'transform_dtype', 'transform_mxu')},
+    'ops.ozaki': {
+        'ozaki_matmul': 'float64 emulation; the port uses torch.matmul',
+        'ozaki_matmul_c': 'complex128 emulation; the port uses '
+                          'torch.matmul',
+        'DEFAULT_PRECISION_BITS': 'config.PRECISION_BITS in the port'},
+    'types': {'Qobj': 'the port\'s types are structural and name no '
+                      'optional dependency'},
+}
+#: Keyword parameters of the JAX package a ported function leaves out.
+OMITTED_PARAMETERS = {
+    ('config', 'memory_budget'): {
+        'fraction': 'the JAX package reads its budget from FF_TPU_* '
+                    'settings; the port takes budget_bytes',
+        'fallback': 'as fraction'},
+    ('functional', 'control_matrix'): {
+        'escalation': 'an in-graph switch of the jitted JAX pipeline; the '
+                      'port takes contract and escalation_tol'},
+    ('numeric', 'calculate_control_matrix_from_scratch'): {
+        'out': 'the reference\'s output buffer, unused by the JAX package'},
+    ('util', 'tensor'): {
+        'optimize': 'the reference\'s einsum path flag, unused by the JAX '
+                    'package'},
+    ('util', 'tensor_insert'): {'optimize': 'as util.tensor'},
+    ('util', 'tensor_merge'): {'optimize': 'as util.tensor'},
+}
+
+
+def _modules(pkg):
+    return [''] + [m.name[len(pkg.__name__) + 1:] for m in
+                   pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
+
+
+def _import(pkg, rel):
+    return importlib.import_module(pkg.__name__ + ('.' + rel if rel else ''))
+
+
+def _public(module):
+    """``__all__`` and the public functions and classes *module*
+    defines."""
+    names = set(getattr(module, '__all__', ()))
+    for name, value in vars(module).items():
+        if (not name.startswith('_')
+                and (inspect.isfunction(value) or inspect.isclass(value))
+                and value.__module__ == module.__name__):
+            names.add(name)
+    return names
+
+
+def _parameters(fn):
+    try:
+        return set(inspect.signature(fn).parameters)
+    except (TypeError, ValueError):
+        return None
+
+
+JAX_MODULES = _modules(ff)
+PORT_MODULES = set(_modules(fft))
+
+
+def test_module_lists_are_exact():
+    """Every omitted or still-to-port module exists in the JAX package and
+    not in the port; parallel is the one module still to port."""
+    for rel in (*OMITTED_MODULES, *TO_PORT_MODULES):
+        assert rel in JAX_MODULES and rel not in PORT_MODULES, rel
+    assert {rel.split('.')[0] for rel in TO_PORT_MODULES} == {'parallel'}
+
+
+@pytest.mark.parametrize('rel', [m for m in JAX_MODULES
+                                 if m not in OMITTED_MODULES
+                                 and m not in TO_PORT_MODULES])
+def test_module_names_and_parameters(rel):
+    """The port's counterpart of the JAX module has its public names
+    (those it leaves out are listed with reasons) and, for each shared
+    function and each method of a shared class, its parameters."""
+    assert rel in PORT_MODULES, f'{rel} is not ported'
+    if rel == 'plotting':
+        pytest.importorskip('matplotlib', reason='plotting needs matplotlib')
+    jmod, pmod = _import(ff, rel), _import(fft, rel)
+    omitted = OMITTED_NAMES.get(rel, {})
+    missing = _public(jmod) - _public(pmod)
+    assert missing == set(omitted), (missing, set(omitted))
+    for name in sorted(_public(jmod) & _public(pmod)):
+        want, got = getattr(jmod, name), getattr(pmod, name)
+        pairs = [(name, want, got)]
+        if inspect.isclass(want):
+            pairs = [(f'{name}.{meth}', getattr(want, meth),
+                      getattr(got, meth, None))
+                     for meth, value in vars(want).items()
+                     if (meth == '__init__' or not meth.startswith('_'))
+                     and (callable(value) or isinstance(
+                         value, (classmethod, staticmethod)))]
+        for qual, w, g in pairs:
+            assert g is not None, f'{rel}.{qual} is missing'
+            params_w, params_g = _parameters(w), _parameters(g)
+            if params_w is None or params_g is None:
+                continue
+            left_out = params_w - params_g
+            assert left_out == set(OMITTED_PARAMETERS.get((rel, qual), ())), \
+                f'{rel}.{qual} lacks {sorted(left_out)}'
+
+
+def test_pulse_sequence_reexports_the_composition_functions():
+    """pulse_sequence.__all__ lists what the JAX module's lists, and the
+    names are the sequencing functions (a fault this test would have
+    caught)."""
+    from filter_functions_tpu import pulse_sequence as jps
+    from filter_functions_tpu_torch import pulse_sequence, sequencing
+    assert set(pulse_sequence.__all__) == set(jps.__all__)
+    for name in ('concatenate', 'concatenate_periodic', 'extend', 'remap',
+                 'concatenate_without_filter_function'):
+        assert getattr(pulse_sequence, name) is getattr(sequencing, name)
+        assert getattr(fft, name) is getattr(sequencing, name)
+    assert 'spectroscopy' in fft.__all__ and hasattr(fft, 'spectroscopy')
+    assert 'exchange' in fft.models.__all__

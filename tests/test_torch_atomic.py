@@ -189,7 +189,7 @@ def test_adot_scan_matches_sequential():
         want.append(m @ want[-1])
     _close(util.adot(mats), torch.stack(want), 1e-13)
     batched = mats.reshape(4, 25, 3, 3)
-    np.testing.assert_allclose(util.adot(batched, dim=1)[2].numpy(),
+    np.testing.assert_allclose(util.adot(batched, axis=1)[2].numpy(),
                                util.adot(batched[2]).numpy(), atol=1e-13)
 
 

@@ -209,3 +209,36 @@ def test_ggm_expand_matches_jax(d, traceless, hermitian):
     np.testing.assert_allclose(rebuilt.numpy(), M, rtol=0, atol=1e-13)
     with pytest.raises(ValueError, match='square'):
         basis.ggm_expand(np.ones((2, 3)))
+
+
+@pytest.mark.parametrize('n', [1, 2, 3])
+def test_pauli_index_machinery_matches_jax(n):
+    """Basis.pauli_mult_table, equivalent_pauli_basis_elements for every
+    subset of the qubits, and remap_pauli_basis_elements for every qubit
+    permutation equal the JAX package's arrays exactly; the table's
+    products are those of the basis elements (1e-15)."""
+    from itertools import combinations, permutations
+    index, phase = basis.Basis.pauli(n).pauli_mult_table()
+    want_index, want_phase = jbasis.Basis.pauli(n).pauli_mult_table()
+    np.testing.assert_array_equal(index, want_index)
+    np.testing.assert_array_equal(phase, want_phase)
+    assert index.dtype == np.int64 and phase.dtype == np.complex128
+    b = basis.Basis.pauli(n).np
+    prods = np.einsum('aij,bjk->abik', b, b)
+    np.testing.assert_allclose(
+        prods, phase[..., None, None] / np.sqrt(2**n) * b[index], rtol=0,
+        atol=1e-15)
+    for k in range(1, n + 1):
+        for idx in combinations(range(n), k):
+            np.testing.assert_array_equal(
+                basis.equivalent_pauli_basis_elements(idx, n),
+                jbasis.equivalent_pauli_basis_elements(idx, n))
+    np.testing.assert_array_equal(
+        basis.equivalent_pauli_basis_elements(n - 1, n),
+        jbasis.equivalent_pauli_basis_elements(n - 1, n))
+    for order in permutations(range(n)):
+        np.testing.assert_array_equal(
+            basis.remap_pauli_basis_elements(order, n),
+            jbasis.remap_pauli_basis_elements(order, n))
+    with pytest.raises(ValueError, match='Pauli'):
+        basis.Basis.ggm(2).pauli_mult_table()

@@ -221,3 +221,134 @@ def test_types_are_structural():
                  'PulseMapping', 'Device'):
         assert hasattr(types, name)
     assert 'qutip' not in repr(types.Operator)
+
+
+# -----------------------------------------------------------------------------
+# tensor_insert / tensor_merge / tensor_transpose
+# -----------------------------------------------------------------------------
+def _tensor_cases():
+    """(name, call(util module, array converter)) of the tensor-family
+    cases of tests/test_util.py::TestTensor."""
+    rng = np.random.default_rng(21)
+    I, X, Y, Z = jutil.paulis
+    d22, d2 = [[2, 2], [2, 2]], [[2] * 2] * 2
+    arrs, args = rng.standard_normal((2, 2, 2)), rng.standard_normal((2, 2, 2))
+    A1, B1 = rng.standard_normal((2, 2, 3, 1, 2))
+    C1 = rng.standard_normal((3, 1, 3))
+    A3, C3 = rng.standard_normal((2, 3, 1, 2)), rng.standard_normal((3, 2, 1))
+    B3 = rng.standard_normal((2, 3, 2, 2))
+    a = rng.standard_normal((2, 10, 3, 4))
+    b = rng.standard_normal((2, 10, 3, 2))
+    stack = rng.standard_normal((5, 4, 2, 2, 2))
+    cases = {
+        'insert_pos0': lambda u, t: u.tensor_insert(
+            t(jutil.tensor(X, I)), t(Y), t(Z), pos=0, arr_dims=d22),
+        'insert_pos1': lambda u, t: u.tensor_insert(
+            t(jutil.tensor(X, I)), t(Y), t(Z), pos=1, arr_dims=d22),
+        'insert_pos2': lambda u, t: u.tensor_insert(
+            t(jutil.tensor(X, I)), t(Y), t(Z), pos=2, arr_dims=d22),
+        'insert_neg': lambda u, t: u.tensor_insert(
+            t(jutil.tensor(X, I)), t(Y), t(Z), pos=-1, arr_dims=d22),
+        'insert_multi': lambda u, t: u.tensor_insert(
+            t(jutil.tensor(*arrs)), *map(t, args), pos=(0, 1), arr_dims=d22),
+        'insert_duplicate': lambda u, t: u.tensor_insert(
+            t(jutil.tensor(*arrs)), *map(t, args), pos=(0, 0), arr_dims=d22),
+        'insert_1_2': lambda u, t: u.tensor_insert(
+            t(jutil.tensor(*arrs)), *map(t, args), pos=(1, 2), arr_dims=d22),
+        'insert_rank1': lambda u, t: u.tensor_insert(
+            t(jutil.tensor(A1, C1, rank=1)), t(B1), pos=1, rank=1,
+            arr_dims=[[2, 3]]),
+        'insert_rank3': lambda u, t: u.tensor_insert(
+            t(jutil.tensor(A3, C3, rank=3)), t(B3), pos=1, rank=3,
+            arr_dims=[[3, 3], [1, 2], [2, 1]]),
+        'insert_rank3_stack': lambda u, t: u.tensor_insert(
+            t(jutil.tensor(*stack[2:], rank=3)), *map(t, stack[:2]), pos=1,
+            rank=3, arr_dims=[[2] * 3] * 3),
+        'merge': lambda u, t: u.tensor_merge(
+            t(jutil.tensor(X, Y, Z)), t(jutil.tensor(I, I)), pos=[1, 2],
+            arr_dims=[[2] * 3] * 2, ins_dims=d2),
+        'merge_swapped': lambda u, t: u.tensor_merge(
+            t(jutil.tensor(I, I)), t(jutil.tensor(X, Y, Z)), pos=[0, 1, 2],
+            arr_dims=d2, ins_dims=[[2] * 3] * 2),
+        'merge_duplicate': lambda u, t: u.tensor_merge(
+            t(jutil.tensor(Y, Z)), t(jutil.tensor(I, X)), pos=[0, 0],
+            arr_dims=d2, ins_dims=d2),
+        'merge_neg': lambda u, t: u.tensor_merge(
+            t(jutil.tensor(Y, Z)), t(jutil.tensor(I, X)), pos=(-1, -2),
+            arr_dims=d2, ins_dims=d2),
+        'merge_rank1': lambda u, t: u.tensor_merge(
+            t(jutil.tensor(*a, rank=1)), t(jutil.tensor(*b, rank=1)),
+            pos=[0, 1], arr_dims=[[4, 4]], ins_dims=[[2, 2]], rank=1),
+        'transpose': lambda u, t: u.tensor_transpose(
+            t(jutil.tensor(X, Y, Z)), [1, 2, 0], [[2, 2, 2]] * 2),
+        'transpose_rank1': lambda u, t: u.tensor_transpose(
+            t(jutil.tensor(*stack[:3, 0, 0, 0], rank=1)), [2, 0, 1],
+            [[2] * 3], rank=1),
+        'transpose_batch': lambda u, t: u.tensor_transpose(
+            t(jutil.tensor(*stack[:3, :, 0], rank=2)), (0, 2, 1),
+            [[2] * 3] * 2),
+    }
+    return cases
+
+
+@pytest.mark.parametrize('name', list(_tensor_cases()))
+def test_tensor_family_matches_jax(name):
+    """tensor_insert, tensor_merge and tensor_transpose on the cases of
+    tests/test_util.py: numpy in gives JAX's numpy result bit for bit; a
+    tensor in gives a tensor of the same dtype with the same entries
+    (each entry is one product, so exact too)."""
+    call = _tensor_cases()[name]
+    want = call(jutil, np.asarray)
+    got = call(util, np.asarray)
+    assert isinstance(got, np.ndarray)
+    np.testing.assert_array_equal(got, want)
+    got = call(util, torch.tensor)
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.tensor(
+        want).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_tensor_family_mixed_operands_and_errors():
+    """numpy factors join a tensor's device and dtype; the same bad
+    arguments raise what JAX's raise."""
+    I, X, Y, Z = util.paulis
+    got = util.tensor_insert(torch.tensor(util.tensor(X, I)), Y, pos=0,
+                             arr_dims=[[2, 2], [2, 2]])
+    assert isinstance(got, torch.Tensor)
+    np.testing.assert_array_equal(got.numpy(), util.tensor(Y, X, I))
+    eigvals = torch.tensor([1.0, -1.0])
+    got = util.tensor_insert(eigvals, *np.ones((2, 2)), pos=[0, 1], rank=1,
+                             arr_dims=[[2]])
+    assert got.dtype == torch.float64
+    np.testing.assert_array_equal(got.numpy(), np.kron(np.ones(2), np.kron(
+        [1.0, -1.0], np.ones(2))))
+    bad = [
+        (lambda u: u.tensor_insert(u.tensor(X, I), pos=0,
+                                   arr_dims=[[2, 2], [2, 2]]), ValueError),
+        (lambda u: u.tensor_insert(u.tensor(X, I), Y, pos=5,
+                                   arr_dims=[[2, 2], [2, 2]]), IndexError),
+        (lambda u: u.tensor_insert(u.tensor(X, I), Y, Z, pos=(0, 1, 2),
+                                   arr_dims=[[2, 2], [2, 2]]), ValueError),
+        (lambda u: u.tensor_insert(u.tensor(X, I), Y, pos=1, rank=1,
+                                   arr_dims=[[3, 3], [1, 2], [2, 1]]),
+         ValueError),
+        (lambda u: u.tensor_merge(u.tensor(X, Y), u.tensor(I, I), pos=(1, 2),
+                                  arr_dims=[[2, 2]] * 3,
+                                  ins_dims=[[2, 2]] * 2), ValueError),
+        (lambda u: u.tensor_merge(u.tensor(X, Y), u.tensor(I, I), pos=(1, 3),
+                                  arr_dims=[[2, 2]] * 2,
+                                  ins_dims=[[2, 2]] * 2), IndexError),
+        (lambda u: u.tensor_merge(u.tensor(X, Y), u.tensor(I, I), pos=(1, 2),
+                                  arr_dims=[[2, 3], [2, 2]],
+                                  ins_dims=[[2, 2]] * 2), ValueError),
+        (lambda u: u.tensor_transpose(u.tensor(X, Y), [0, 0], [[2, 2]] * 2),
+         ValueError),
+        (lambda u: u.tensor_transpose(u.tensor(X, Y), [0, 1.0], [[2, 2]] * 2),
+         TypeError),
+    ]
+    for call, exc in bad:
+        with pytest.raises(exc) as want:
+            call(jutil)
+        with pytest.raises(exc) as got:
+            call(util)
+        assert str(got.value) == str(want.value)
