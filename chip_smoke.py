@@ -161,6 +161,36 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       ``qubit_subspace_basis()`` under the Dial spectrum within 1e-12
       relative of the CPU port's; prints the launches.
 
+11. the sharded paths (``parallel``) on the card.
+   a. ``parallel.make_mesh(1)`` creates a process group of one ('nccl',
+      which then never reduces) and a 1 x 1 mesh on cuda:0;
+      ``sharded_batched_infidelity`` of phase 4's inputs (batch 32,
+      chunks of 2, 1000 frequencies) equals phase 4's result
+      (``torch.equal``) with no collective and 16 kernel launches; timed
+      beside ``functional.batched_infidelity`` in ms/pulse.
+   b. Two ranks on cuda:0, spawned, on 'gloo' with a ``FileStore`` in a
+      temporary directory (NCCL refuses two ranks on one card): rows 0-3
+      of phase 4's batch at 1000 frequencies on a 1 x 2 mesh (frequencies
+      split) and a 2 x 1 mesh (batch split).  gloo all-reduces CUDA
+      tensors but crashes on their all-gather, so a rank gathers a result
+      as ``full_tensor()`` of its placements on a CPU mesh of the same
+      ranks.  ``.full_tensor()`` of
+      ``sharded_batched_infidelity`` within 1e-12 relative of phase 4's
+      rows, ``sharded_filter_function`` of row 0 within 1e-13 (of its
+      largest entry; predicted equal) of the unsharded filter function,
+      the collective lists and each rank's launches as
+      ``parallel.sharding`` documents them, and
+      ``__graft_entry__.dryrun_multichip``'s problem (d = 2, 3 segments,
+      batch 4, 4 frequencies) on a 2 x 1 mesh: ``grape_step``'s loss
+      finite and falling over two steps, ``sharded_batched_infidelity``
+      finite.  Both ranks must exit 0 within ``RANK_DEADLINE``.
+   c. GRAPE on the one-rank mesh: the dryrun problem for one rank (batch
+      2), loss finite and falling; on rows 0-3 of phase 4's batch
+      (chunks of 2, default route) ``grape_step``'s gradient within
+      1e-10 relative of phase 8a's autograd gradient, with 2 launches;
+      ``optimize_pulse`` for 5 steps, finite, with its launches; times a
+      GRAPE step in ms per pulse, with its peak device memory.
+
 Before the last line come the card's label and the kernels' JSON
 record, in that order; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -172,17 +202,21 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed
 
 import filter_functions_tpu_torch as fft
 from filter_functions_tpu_torch import (analytic, basis, config, functional,
-                                        numeric, spectroscopy, superoperator,
-                                        util)
+                                        numeric, parallel, spectroscopy,
+                                        superoperator, util)
 from filter_functions_tpu_torch.models import dd, exchange, qft, rb
 from filter_functions_tpu_torch.ops import _build, dword
+from filter_functions_tpu_torch.parallel import sharding
 
 N_OMEGA = 1000
 BATCH = 32
@@ -287,6 +321,23 @@ S_HAT_PARITY = 1e-5
 #: deep regime, so the card runs the native route and holds the CPU's
 #: infidelity to 1e-12.
 CNOT_SEGMENTS = 500
+#: The sharded infidelity against the unsharded one, relative: the
+#: frequency integral summed in another order (trapezoid weights), as
+#: the JAX package holds its own (tests/test_parallel.py).
+SHARD_PARITY = 1e-12
+#: The frequency-sharded filter function against the unsharded one,
+#: relative to its largest entry.  Predicted equal: the deep route scales
+#: each frequency row of P by its own power of two.
+SHARD_FF_PARITY = 1e-13
+#: Seconds the two ranks of phase 11b may take, start-up included.
+RANK_DEADLINE = 600
+#: grape_step's gradient against phase 8a's autograd gradient, relative.
+GRAPE_PARITY = 1e-10
+#: The learning rate of the gradient probe (11c): a power of two, so
+#: that (c - new) / lr gives the gradient back to its own rounding.
+GRAPE_PROBE_LR = 2.0**20
+#: Steps of optimize_pulse on the flagship rows (11c).
+OPTIMIZE_STEPS = 5
 
 
 def _card_label() -> str:
@@ -468,7 +519,8 @@ def main() -> int:
     etm_second_order(device, card)
 
     # 8. gradients
-    grad_launches = autograd_flagship(device, card, batched, omega, spectrum)
+    grad_launches, grad_8a = autograd_flagship(device, card, batched, omega,
+                                               spectrum)
     analytic_flagship(device, card)
     grad_config(device, card)
 
@@ -489,6 +541,15 @@ def main() -> int:
     space_launches['models.exchange.cnot_pulse'] = exchange_cnot(device,
                                                                  card)
     concat_launches.update(space_launches)
+
+    # 11. the sharded paths
+    mesh, shard_launches = sharded_flagship(device, card, batched, omega,
+                                            spectrum, infid)
+    concat_launches.update(shard_launches)
+    concat_launches.update(two_ranks(device, card, batched, omega, infid))
+    concat_launches.update(grape_flagship(device, card, mesh, batched, omega,
+                                          spectrum, grad_8a))
+    torch.distributed.destroy_process_group()
 
     print(card)
     print(json.dumps({'kernels': [{
@@ -743,7 +804,8 @@ def _rel(a, b) -> float:
 
 def autograd_flagship(device, card, batched, omega, spectrum) -> int:
     """Phase 8a: autograd of the flagship's batched infidelity on both
-    routes; returns the kernel's launches in the forward pass."""
+    routes; returns the kernel's launches in the forward pass and the
+    default route's gradient."""
     p = batched._replace(c_coeffs=batched.c_coeffs[:GRAD_BATCH],
                          n_coeffs=batched.n_coeffs[:GRAD_BATCH],
                          dt=batched.dt[:GRAD_BATCH])
@@ -785,7 +847,7 @@ def autograd_flagship(device, card, batched, omega, spectrum) -> int:
               f'{GRAD_BATCH}, chunk {CHUNK}) [{card}]')
     print(f'autograd flagship: peak device memory {peak / 2**30:.2f} GiB '
           f'(Ozaki route) [{card}]')
-    return forward
+    return forward, grad
 
 
 def analytic_flagship(device, card) -> None:
@@ -1586,6 +1648,288 @@ def exchange_cnot(device, card) -> int:
           f'launches on the card')
     _check('cnot_pulse on the card against the CPU', rel, CPU_PARITY)
     return launches
+
+
+def _first(p, n):
+    """The first *n* pulses of the batch *p*."""
+    return p._replace(c_coeffs=p.c_coeffs[:n], n_coeffs=p.n_coeffs[:n],
+                      dt=p.dt[:n])
+
+
+def _full(x, cpu_mesh=None):
+    """The full value of the DTensor *x*: its local block on a one-rank
+    mesh (a 1 x 1 mesh's 'nccl' group then sets up no communicator);
+    else ``full_tensor()`` of the same placements on *cpu_mesh*, a mesh
+    of the same ranks on the CPU.  gloo's all-gather of CUDA tensors
+    crashes (SIGSEGV) on the card's machine; its all-reduce, which the
+    port's collectives use, works."""
+    if x.device_mesh.size() == 1:
+        return x.to_local()
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x.to_local().cpu(), cpu_mesh, x.placements,
+                              run_check=False).full_tensor()
+
+
+def sharded_flagship(device, card, batched, omega, spectrum, infid):
+    """Phase 11a: the flagship batch on a one-rank mesh; returns the mesh
+    and the kernel's launches by path."""
+    mesh = parallel.make_mesh(1, device=device)
+    sharding.collectives = []
+    dword.launches = 0
+    got = parallel.sharded_batched_infidelity(batched, spectrum, omega, mesh,
+                                              chunk_size=CHUNK)
+    torch.cuda.synchronize()
+    launches, reduced = dword.launches, list(sharding.collectives)
+    equal = torch.equal(_full(got), infid)
+    print(f'sharded flagship: make_mesh(1) on {device}: mesh '
+          f'{tuple(mesh.shape)} {mesh.mesh_dim_names}, backend '
+          f'{torch.distributed.get_backend()}; sharded_batched_infidelity '
+          f'batch {BATCH} chunk {CHUNK}: equal to phase 4 {equal}, '
+          f'collectives {reduced}, dword_digits launches {launches}')
+    if not equal or reduced or launches != BATCH // CHUNK:
+        raise AssertionError('the one-rank sharded flagship is not phase 4')
+    ms = _median_ms(lambda: parallel.sharded_batched_infidelity(
+        batched, spectrum, omega, mesh, chunk_size=CHUNK), N_TIMED)
+    plain = _median_ms(lambda: functional.batched_infidelity(
+        batched, spectrum, omega, chunk_size=CHUNK), N_TIMED)
+    print(f'timing: sharded_batched_infidelity (one-rank mesh) '
+          f'{ms / BATCH:.4f} ms/pulse, functional.batched_infidelity '
+          f'{plain / BATCH:.4f} ms/pulse (median of {N_TIMED}, batch '
+          f'{BATCH}, chunk {CHUNK}) [{card}]')
+    return mesh, {'parallel.sharded_batched_infidelity (one-rank mesh)':
+                  launches}
+
+
+def dryrun_inputs(n_ranks, device):
+    """__graft_entry__.dryrun_multichip's problem for *n_ranks* ranks:
+    (mesh batch axis, PulseArrays, omega, spectrum)."""
+    batch_axis = 2 if n_ranks % 2 == 0 and n_ranks > 1 else 1
+    rng = np.random.default_rng(0)
+    d, n_dt, n_ctrl, n_nops = 2, 3, 2, 1
+    batch = batch_axis * 2
+    n_omega = (n_ranks // batch_axis) * 4
+    X, Y, Z = (torch.from_numpy(m / 2) for m in fft.util.paulis[1:])
+    p = functional.PulseArrays(
+        torch.stack([X, Y]).to(device),
+        torch.from_numpy(rng.standard_normal((batch, n_ctrl, n_dt))).to(
+            device),
+        Z[None].to(device),
+        torch.ones(batch, n_nops, n_dt, dtype=torch.float64, device=device),
+        torch.ones(batch, n_dt, dtype=torch.float64, device=device),
+        fft.Basis.ggm(d).tensor(device))
+    omega = torch.from_numpy(np.linspace(0.5, 10, n_omega)).to(device)
+    return batch_axis, p, omega, 1e-2 / omega
+
+
+def dryrun_grape(mesh, n_ranks, device, cpu_mesh=None):
+    """Two grape_step calls and sharded_batched_infidelity on the dryrun
+    problem: (loss before, loss after the first step, infidelities, the
+    collectives of a step, kernel launches); *cpu_mesh* as in
+    :func:`_local`."""
+    _, p, omega, spectrum = dryrun_inputs(n_ranks, device)
+    dword.launches = 0
+    sharding.collectives = []
+    c1, loss0 = parallel.grape_step(p.c_coeffs, p, spectrum, omega, mesh,
+                                    learning_rate=1e-3)
+    reduced = list(sharding.collectives)
+    _, loss1 = parallel.grape_step(c1, p, spectrum, omega, mesh,
+                                   learning_rate=1e-3)
+    infids = _full(parallel.sharded_batched_infidelity(p, spectrum, omega,
+                                                        mesh), cpu_mesh)
+    torch.cuda.synchronize()
+    return (_full(loss0, cpu_mesh).item(), _full(loss1, cpu_mesh).item(),
+            infids.cpu(), reduced, dword.launches)
+
+
+def _check_dryrun(name, loss0, loss1, infids):
+    print(f'{name}: grape_step loss {loss0:.12e} -> {loss1:.12e}, '
+          f'sharded_batched_infidelity {tuple(infids.shape)} finite '
+          f'{bool(torch.isfinite(infids).all())}')
+    if not (np.isfinite(loss0) and np.isfinite(loss1) and loss1 < loss0
+            and torch.isfinite(infids).all()):
+        raise AssertionError(f'{name}: the loss is not finite and falling')
+
+
+def _rank_11b(rank, tmp):
+    """One rank of phase 11b: writes its results, collectives and kernel
+    launches to *tmp*."""
+    try:
+        torch.distributed.init_process_group(
+            'gloo', init_method=f'file://{tmp}/group', rank=rank,
+            world_size=2, timeout=timedelta(seconds=RANK_DEADLINE // 2))
+        device = torch.device('cuda', 0)
+        torch.cuda.set_device(device)
+        batched, omega, spectrum = flagship_inputs(device)
+        p = _first(batched, GRAD_BATCH)
+        one = p._replace(c_coeffs=p.c_coeffs[0], n_coeffs=p.n_coeffs[0],
+                         dt=p.dt[0])
+        out, meshes = {}, {}
+        for shape in ((1, 2), (2, 1)):
+            mesh = parallel.make_mesh(2, batch=shape[0], device=device)
+            cpu_mesh = parallel.make_mesh(2, batch=shape[0], device='cpu')
+            meshes[shape] = mesh, cpu_mesh
+            calls = {'batched': lambda: parallel.sharded_batched_infidelity(
+                         p, spectrum, omega, mesh, chunk_size=CHUNK),
+                     'ff': lambda: parallel.sharded_filter_function(
+                         one, omega, mesh)}
+            for name, call in calls.items():
+                sharding.collectives = []
+                dword.launches = 0
+                result = call()
+                torch.cuda.synchronize()
+                out[shape, name] = (_full(result, cpu_mesh),
+                                    list(sharding.collectives),
+                                    dword.launches)
+        mesh, cpu_mesh = meshes[2, 1]
+        out['dryrun'] = dryrun_grape(mesh, 2, device, cpu_mesh)
+        torch.save(out, f'{tmp}/rank{rank}.pt')
+    except BaseException:
+        Path(tmp, f'rank{rank}.err').write_text(traceback.format_exc())
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def two_ranks(device, card, batched, omega, infid) -> dict:
+    """Phase 11b: two spawned ranks on cuda:0; returns the kernel's
+    launches of both ranks by path."""
+    print('two ranks: NCCL refuses two ranks on one card, so both ranks '
+          'run on cuda:0 over gloo (FileStore); gloo all-reduces CUDA '
+          'tensors but its all-gather of them crashes, so each rank gathers '
+          'a result with full_tensor() on a CPU mesh of the same ranks')
+    torch.cuda.empty_cache()
+    ctx = torch.multiprocessing.get_context('spawn')
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_rank_11b, args=(rank, tmp))
+                 for rank in range(2)]
+        for proc in procs:
+            proc.start()
+        end = time.monotonic() + RANK_DEADLINE
+        for proc in procs:
+            proc.join(max(0.0, end - time.monotonic()))
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+        errors = [Path(tmp, f'rank{r}.err').read_text() for r in range(2)
+                  if Path(tmp, f'rank{r}.err').exists()]
+        codes = [proc.exitcode for proc in procs]
+        if errors or codes != [0, 0]:
+            raise AssertionError(f'phase 11b: rank exit codes {codes} '
+                                 f'(deadline {RANK_DEADLINE} s)\n'
+                                 + '\n'.join(errors))
+        ranks = [torch.load(f'{tmp}/rank{r}.pt', weights_only=False)
+                 for r in range(2)]
+    print(f'two ranks: both exited 0 after {time.perf_counter() - t0:.1f} s '
+          f'(spawn and start-up included)')
+
+    p = _first(batched, GRAD_BATCH)
+    one = p._replace(c_coeffs=p.c_coeffs[0], n_coeffs=p.n_coeffs[0],
+                     dt=p.dt[0])
+    ff_want = functional.fidelity_filter_function(one, omega).cpu()
+    rows_want = infid[:GRAD_BATCH].cpu()
+    expected = {((1, 2), 'batched'): ([('max', None), ('sum', 'omega')], 2),
+                ((1, 2), 'ff'): ([('max', 'omega')], 1),
+                ((2, 1), 'batched'): ([('max', None)], 1),
+                ((2, 1), 'ff'): ([], 1)}
+    launches = {}
+    for key, (want_reduced, want_launches) in expected.items():
+        (shape, name) = key
+        got = [r[key] for r in ranks]
+        if name == 'batched':
+            err = ((got[0][0] - rows_want).abs() / rows_want.abs()).max()
+            bound, what = SHARD_PARITY, 'against phase 4 rows 0-3, relative'
+        else:
+            err = (got[0][0] - ff_want).abs().max() / ff_want.abs().max()
+            bound = SHARD_FF_PARITY
+            what = (f'against the unsharded filter function (equal '
+                    f'{torch.equal(got[0][0], ff_want)}), relative')
+        print(f'two ranks {shape[0]} x {shape[1]} {name}: {what} '
+              f'{err.item():.3e} (bound {bound}); collectives '
+              f'{[g[1] for g in got]}; dword_digits launches per rank '
+              f'{[g[2] for g in got]}')
+        _check(f'two ranks {shape} {name}', err.item(), bound)
+        if not torch.equal(got[0][0], got[1][0]):
+            raise AssertionError(f'{key}: the ranks disagree')
+        if any(g[1] != want_reduced or g[2] != want_launches for g in got):
+            raise AssertionError(f'{key}: collectives or launches are not '
+                                 f'{want_reduced}, {want_launches}')
+        path = ('parallel.sharded_batched_infidelity' if name == 'batched'
+                else 'parallel.sharded_filter_function')
+        launches[f'{path} (two ranks, {shape[0]} x {shape[1]})'] = sum(
+            g[2] for g in got)
+    for rank, r in enumerate(ranks):
+        loss0, loss1, infids, reduced, dry_launches = r['dryrun']
+        _check_dryrun(f'two ranks dryrun 2 x 1, rank {rank}', loss0, loss1,
+                      infids)
+        if reduced != [('max', None), ('sum', 'batch')] or dry_launches:
+            raise AssertionError(f'dryrun on two ranks: collectives '
+                                 f'{reduced}, launches {dry_launches}')
+    print(f'two ranks dryrun: the collectives of a grape_step {reduced} '
+          f'[{card}]')
+    launches['parallel.grape_step (dryrun, two ranks)'] = 0
+    return launches
+
+
+def grape_flagship(device, card, mesh, batched, omega, spectrum,
+                   grad_8a) -> dict:
+    """Phase 11c: GRAPE on the one-rank mesh; returns the kernel's
+    launches by path."""
+    loss0, loss1, infids, reduced, dry_launches = dryrun_grape(mesh, 1,
+                                                              device)
+    _check_dryrun('grape dryrun (one rank)', loss0, loss1, infids)
+    p = _first(batched, GRAD_BATCH)
+    torch.cuda.reset_peak_memory_stats(device)
+    sharding.collectives = []
+    dword.launches = 0
+    new, loss = parallel.grape_step(p.c_coeffs, p, spectrum, omega, mesh,
+                                    learning_rate=GRAPE_PROBE_LR,
+                                    chunk_size=CHUNK)
+    torch.cuda.synchronize()
+    launches, step_reduced = dword.launches, list(sharding.collectives)
+    peak = torch.cuda.max_memory_allocated(device)
+    grad = (p.c_coeffs - _full(new)) / GRAPE_PROBE_LR
+    to_8a = _rel(grad, grad_8a)
+    print(f'grape flagship: rows 0-{GRAD_BATCH - 1}, chunk {CHUNK}, '
+          f'{N_OMEGA} frequencies, route '
+          f'{config.contraction_mode(device)!r}: loss '
+          f'{_full(loss).item():.12e}, gradient against phase 8a '
+          f'{to_8a:.3e} relative (bound {GRAPE_PARITY}); dword_digits '
+          f'launches {launches}, collectives {step_reduced}')
+    _check('grape_step gradient against phase 8a', to_8a, GRAPE_PARITY)
+    if launches != GRAD_BATCH // CHUNK or step_reduced:
+        raise AssertionError('grape_step launched or reduced otherwise '
+                             'than the forward pass of phase 8a')
+    ms = _median_ms(lambda: parallel.grape_step(
+        p.c_coeffs, p, spectrum, omega, mesh, chunk_size=CHUNK), N_TIMED)
+    print(f'timing: grape_step {ms / GRAD_BATCH:.4f} ms per step per pulse '
+          f'(median of {N_TIMED}, batch {GRAD_BATCH}, chunk {CHUNK}); peak '
+          f'device memory {peak / 2**30:.2f} GiB [{card}]')
+
+    dword.launches = 0
+    t0 = time.perf_counter()
+    res = parallel.optimize_pulse(p, spectrum, omega, n_steps=OPTIMIZE_STEPS,
+                                  mesh=mesh, chunk_size=CHUNK)
+    history = _full(res.history)
+    final = _full(res.infidelity)
+    torch.cuda.synchronize()
+    opt_ms = (time.perf_counter() - t0) * 1e3
+    opt_launches = dword.launches
+    print(f'grape flagship: optimize_pulse {OPTIMIZE_STEPS} steps (Adam, lr '
+          f'1e-2): history {history.tolist()}, final infidelity '
+          f'{final.tolist()}; dword_digits launches {opt_launches}; '
+          f'{opt_ms:.1f} ms [{card}]')
+    if (history.shape != (OPTIMIZE_STEPS,) or final.shape != (GRAD_BATCH,)
+            or not torch.isfinite(history).all()
+            or not torch.isfinite(final).all()
+            or opt_launches != (OPTIMIZE_STEPS + 1) * GRAD_BATCH // CHUNK):
+        raise AssertionError('optimize_pulse on the flagship rows')
+    return {'parallel.grape_step (dryrun, one rank)': dry_launches,
+            'parallel.grape_step (flagship rows 0-3)': launches,
+            f'parallel.optimize_pulse (flagship rows 0-3, {OPTIMIZE_STEPS} '
+            'steps)': opt_launches}
 
 
 if __name__ == '__main__':

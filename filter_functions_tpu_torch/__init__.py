@@ -18,14 +18,16 @@ route, or in closed form from :mod:`.gradient`
 (:func:`infidelity_derivative`).  :mod:`.spectroscopy` reconstructs a
 noise spectrum from measured infidelities; :mod:`.plotting` (imported on
 its own, it needs matplotlib) draws pulses and filter functions.
+:mod:`.parallel` splits the frequency grid and the pulse batch over a
+``torch.distributed`` device mesh and runs GRAPE on it.
 
 Complex values are ``torch.complex128`` and reals ``torch.float64``;
 every computed value lives on an explicit device.  The package imports
 ``torch`` and never ``jax``.
 """
 from . import (analytic, basis, config, convert, functional, gradient,
-               models, numeric, pulse_sequence, sequencing, spectroscopy,
-               superoperator, types, util)
+               models, numeric, parallel, pulse_sequence, sequencing,
+               spectroscopy, superoperator, types, util)
 from .basis import Basis
 from .functional import PulseArrays, batched_infidelity, control_matrix
 from .gradient import infidelity_derivative
@@ -44,5 +46,5 @@ __all__ = ['Basis', 'PulseArrays', 'PulseSequence', 'batched_infidelity',
            'infidelity_derivative', 'liouville_representation',
            'qft_pulse_arrays', 'qft_pulse_sequence', 'remap', 'analytic',
            'basis', 'config', 'convert', 'functional', 'gradient', 'models',
-           'numeric', 'pulse_sequence', 'sequencing', 'spectroscopy',
-           'superoperator', 'types', 'util']
+           'numeric', 'parallel', 'pulse_sequence', 'sequencing',
+           'spectroscopy', 'superoperator', 'types', 'util']

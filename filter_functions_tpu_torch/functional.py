@@ -15,7 +15,7 @@ too; the escalation decision stays outside the graph.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,17 +83,41 @@ def _contract(terms: Tuple[torch.Tensor, ...],
 def _infid_contract(terms: Tuple[torch.Tensor, ...], spectrum: torch.Tensor,
                     omega: torch.Tensor, d: int, escalation: str = 'stat',
                     contract: str = 'native',
-                    degenerate: Optional[torch.Tensor] = None
+                    degenerate: Optional[torch.Tensor] = None,
+                    weights: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Control-matrix contraction and spectral integral of step terms.
+
+    The integral is the trapezoid over *omega*, or with *weights* the
+    weighted sum over these frequencies: a share of a frequency grid
+    split across ranks takes its slice of the whole grid's
+    :func:`.numeric.trapezoid_weights` (:mod:`.parallel.sharding`).
 
     Returns (infidelity (..., n_nops), ratio (...)), the ratio being the
     quantization statistic of the deep factored contraction (0 off that
     route)."""
     ctrl, ratio = _contract(terms, degenerate, escalation, contract)
     diag = (ctrl.real * ctrl.real + ctrl.imag * ctrl.imag).sum(-2)
-    infid = util.integrate(diag * spectrum, omega) / (2 * math.pi * d)
-    return infid, ratio
+    if weights is None:
+        integral = util.integrate(diag * spectrum, omega)
+    else:
+        integral = (diag * spectrum * weights).sum(-1)
+    return integral / (2 * math.pi * d), ratio
+
+
+def _escalates(ratios: torch.Tensor, escalation_tol: float,
+               ratio_max: Optional[Callable] = None) -> bool:
+    """Whether the largest quantization ratio exceeds *escalation_tol* (0
+    disables the check).  *ratio_max* maps the local largest ratio to
+    the one the decision reads: the sharded entry points take its
+    maximum over the mesh, so that every rank decides as the unsharded
+    call does."""
+    if escalation_tol <= 0:
+        return False
+    worst = ratios.max()
+    if ratio_max is not None:
+        worst = ratio_max(worst)
+    return bool(worst > escalation_tol)
 
 
 def control_matrix(p: PulseArrays, omega: torch.Tensor,
@@ -107,9 +131,17 @@ def control_matrix(p: PulseArrays, omega: torch.Tensor,
     recomputed natively when its quantization statistic exceeds
     *escalation_tol* (0 disables the check)."""
     mode = config.contraction_mode(p.c_opers.device, contract)
+    return _control_matrix(p, omega, mode, escalation_tol)
+
+
+def _control_matrix(p: PulseArrays, omega: torch.Tensor, mode: str,
+                    escalation_tol: float,
+                    ratio_max: Optional[Callable] = None) -> torch.Tensor:
+    """:func:`control_matrix` on the resolved route *mode*, the
+    escalation decided by :func:`_escalates`."""
     _, terms, degenerate = _prep(p, p.c_coeffs, p.n_coeffs, p.dt, omega)
     ctrl, ratio = _contract(terms, degenerate, 'stat', mode)
-    if escalation_tol > 0 and bool((ratio > escalation_tol).any()):
+    if _escalates(ratio, escalation_tol, ratio_max):
         ctrl, _ = _contract(terms, degenerate, 'force', mode)
     return ctrl
 
@@ -138,10 +170,12 @@ def infidelity(p: PulseArrays, spectrum: torch.Tensor, omega: torch.Tensor,
 
 def _batched_stat(p: PulseArrays, spectrum: torch.Tensor,
                   omega: torch.Tensor, chunk_size: Optional[int],
-                  escalation: str, contract: str
+                  escalation: str, contract: str,
+                  weights: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Infidelities (batch, n_nops) and quantization ratios (batch,) of
-    the batch, evaluated in sequential chunks of *chunk_size* pulses."""
+    the batch, evaluated in sequential chunks of *chunk_size* pulses
+    (*weights*: :func:`_infid_contract`)."""
     batch = p.c_coeffs.shape[0]
     d = p.c_opers.shape[-1]
     if chunk_size is None or chunk_size >= batch:
@@ -155,7 +189,8 @@ def _batched_stat(p: PulseArrays, spectrum: torch.Tensor,
         _, terms, degenerate = _prep(p, p.c_coeffs[sl], p.n_coeffs[sl],
                                      p.dt[sl], omega)
         infid, ratio = _infid_contract(terms, spectrum, omega, d,
-                                       escalation, contract, degenerate)
+                                       escalation, contract, degenerate,
+                                       weights)
         infids.append(infid)
         ratios.append(ratio)
     return torch.cat(infids), torch.cat(ratios)
@@ -183,11 +218,24 @@ def batched_infidelity(p: PulseArrays, spectrum: torch.Tensor,
     on the host, one synchronization per call.
     """
     mode = config.contraction_mode(p.c_opers.device, contract)
+    return _batched_infidelity(p, spectrum, omega, chunk_size, mode,
+                               escalation_tol)
+
+
+def _batched_infidelity(p: PulseArrays, spectrum: torch.Tensor,
+                        omega: torch.Tensor, chunk_size: Optional[int],
+                        mode: str, escalation_tol: float,
+                        weights: Optional[torch.Tensor] = None,
+                        ratio_max: Optional[Callable] = None
+                        ) -> torch.Tensor:
+    """:func:`batched_infidelity` on the resolved route *mode*: the
+    'stat' pass, the decision of :func:`_escalates`, and the 'force'
+    pass when it escalates (*weights*: :func:`_infid_contract`)."""
     infid, ratios = _batched_stat(p, spectrum, omega, chunk_size, 'stat',
-                                  mode)
-    if escalation_tol > 0 and bool(ratios.max() > escalation_tol):
+                                  mode, weights)
+    if _escalates(ratios, escalation_tol, ratio_max):
         infid, _ = _batched_stat(p, spectrum, omega, chunk_size, 'force',
-                                 mode)
+                                 mode, weights)
     return infid
 
 

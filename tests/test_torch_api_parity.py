@@ -6,8 +6,13 @@ and method there takes at least the JAX package's keyword parameters.
 
 What the port leaves out on purpose is listed below with its reason
 (ROADMAP.md, "What the port leaves out" and §2.3); what is still to port
-is listed apart.  Both lists must stay exact: an entry that the port has
-after all fails the test.
+is listed apart, and nothing is.  Both lists must stay exact: an entry
+that the port has after all fails the test.
+
+A keyword may keep its name with a torch meaning: ``parallel.
+optimize_pulse``'s ``optimizer`` is a callable ``params ->
+torch.optim.Optimizer`` where the JAX package takes an optax
+transformation, and ``mesh`` is a ``torch.distributed`` DeviceMesh.
 """
 import importlib
 import inspect
@@ -26,10 +31,10 @@ OMITTED_MODULES = {
                         'in ops.dword and csrc/dword_digits.cu',
 }
 #: Modules still to port.
-TO_PORT_MODULES = {'parallel', 'parallel.optimize', 'parallel.sharding'}
+TO_PORT_MODULES = set()
 #: Public names a ported module leaves out, with reasons.
 OMITTED_NAMES = {
-    '': {'cplx': OMITTED_MODULES['cplx'], 'parallel': 'still to port'},
+    '': {'cplx': OMITTED_MODULES['cplx']},
     'config': {name: 'a setting of the TPU backend (precision emulation, '
                      'host offload, compile cache) with no meaning on a GPU'
                for name in ('backend', 'complex_dtype', 'device_memory_bytes',
@@ -98,11 +103,11 @@ PORT_MODULES = set(_modules(fft))
 
 
 def test_module_lists_are_exact():
-    """Every omitted or still-to-port module exists in the JAX package and
-    not in the port; parallel is the one module still to port."""
+    """Every omitted module exists in the JAX package and not in the port,
+    and nothing is left to port."""
     for rel in (*OMITTED_MODULES, *TO_PORT_MODULES):
         assert rel in JAX_MODULES and rel not in PORT_MODULES, rel
-    assert {rel.split('.')[0] for rel in TO_PORT_MODULES} == {'parallel'}
+    assert TO_PORT_MODULES == set()
 
 
 @pytest.mark.parametrize('rel', [m for m in JAX_MODULES

@@ -3,10 +3,25 @@
 testutil's pulse factories build a pulse without a device argument, and
 the port's default device is the card.  :data:`fft_cpu` is the ``cls``
 they take to build the port's pulse on the CPU.
+
+:func:`run_ranks` runs a function of this module on every rank of a
+``gloo`` process group of spawned processes, for the tests of
+``filter_functions_tpu_torch.parallel``.  This module imports no JAX, so
+the spawned processes never do.
 """
+import contextlib
 import functools
+import multiprocessing
+import pickle
+import sys
+import time
+import traceback
 import types
+from datetime import timedelta
 from pathlib import Path
+
+import numpy as np
+import torch
 
 import filter_functions_tpu_torch as fft
 
@@ -19,3 +34,249 @@ QFT_NPZ = (Path(__file__).resolve().parents[1] / 'filter_functions_tpu'
 fft_cpu = types.SimpleNamespace(
     Basis=fft.Basis,
     PulseSequence=functools.partial(fft.PulseSequence, device='cpu'))
+
+#: Seconds a world of ranks may take, start-up included, before
+#: :func:`run_ranks` kills it: a collective that some rank never joins
+#: would otherwise hang the test run.
+RANK_DEADLINE = 120.0
+#: Timeout of the process group's own operations, seconds.
+GROUP_TIMEOUT = 60.0
+
+
+def run_ranks(fn, world_size: int, tmp_path, *args, init: bool = True,
+              deadline: float = RANK_DEADLINE) -> list:
+    """``fn(*args)`` on each of *world_size* spawned ranks; returns their
+    return values in rank order.
+
+    *fn* is a function of this module (a spawned process imports it by
+    name).  With *init*, each rank first joins a 'gloo' group
+    initialized from a file under *tmp_path* (no TCP port, which would
+    collide between test workers); every rank runs on one thread.  A
+    rank's exception, a non-zero exit or a world still running after
+    *deadline* seconds (its ranks are then killed) fails the call with
+    the ranks' tracebacks.  Results come back through files.
+    """
+    tmp_path = Path(tmp_path)
+    # the arguments go through a file: a large pickle written into a
+    # child's start-up pipe would wait until that child has imported
+    # this module, one child after the other
+    with open(tmp_path / 'args.pkl', 'wb') as f:
+        pickle.dump(args, f)
+    ctx = multiprocessing.get_context('spawn')
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn.__name__, rank, world_size, str(tmp_path),
+                               init))
+             for rank in range(world_size)]
+    for proc in procs:
+        proc.start()
+    end = time.monotonic() + deadline
+    for proc in procs:
+        proc.join(max(0.0, end - time.monotonic()))
+    hung = [rank for rank, proc in enumerate(procs) if proc.is_alive()]
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+        proc.join()
+    errors = []
+    for rank in range(world_size):
+        err = tmp_path / f'rank{rank}.err'
+        if err.exists():
+            errors.append(f'rank {rank}:\n{err.read_text()}')
+    if hung or errors or any(proc.exitcode != 0 for proc in procs):
+        raise AssertionError(
+            f'{fn.__name__} on {world_size} ranks: still running after '
+            f'{deadline} s {hung}, exit codes '
+            f'{[proc.exitcode for proc in procs]}\n' + '\n'.join(errors))
+    results = []
+    for rank in range(world_size):
+        with open(tmp_path / f'rank{rank}.pkl', 'rb') as f:
+            results.append(pickle.load(f))
+    return results
+
+
+@contextlib.contextmanager
+def one_thread():
+    """Run the block on one thread, as the ranks of :func:`run_ranks` run:
+    a reduction then sums in the ranks' order, bit for bit."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _rank_main(name, rank, world_size, out_dir, init):
+    import torch.distributed as dist
+    out = Path(out_dir)
+    try:
+        with open(out / 'args.pkl', 'rb') as f:
+            args = pickle.load(f)
+        assert 'jax' not in sys.modules, 'a rank imported jax'
+        assert 'filter_functions_tpu' not in sys.modules, \
+            'a rank imported the JAX package'
+        torch.set_num_threads(1)
+        if init:
+            dist.init_process_group(
+                'gloo', init_method=f'file://{out / "group"}', rank=rank,
+                world_size=world_size,
+                timeout=timedelta(seconds=GROUP_TIMEOUT))
+        result = globals()[name](*args)
+        with open(out / f'rank{rank}.pkl', 'wb') as f:
+            pickle.dump(result, f)
+    except BaseException:
+        (out / f'rank{rank}.err').write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+# -----------------------------------------------------------------------------
+# Rank functions: the port's side of the tests of parallel/.  Inputs and
+# results are numpy arrays; every rank gathers a DTensor with
+# .full_tensor(), a collective, before it returns.
+# -----------------------------------------------------------------------------
+def pulse_arrays(arrays: dict) -> 'fft.functional.PulseArrays':
+    """The port's PulseArrays on the CPU from a dict of numpy arrays."""
+    return fft.convert.pulse_arrays_from_numpy(arrays, device='cpu')
+
+
+def _np(x):
+    """A DTensor's full value (a collective) or a tensor, as numpy."""
+    if hasattr(x, 'full_tensor'):
+        x = x.full_tensor()
+    return x.detach().numpy()
+
+
+def rank_sharded_calls(calls):
+    """Run each of *calls*, (mesh shape, name, kwargs) with numpy
+    arguments and the pulse as the dict ``p``, on a (batch, omega) mesh
+    of that shape; returns [(result, collectives, local shapes)] in
+    order.  Names are those of ``parallel``; ``basis`` is the dimension
+    of a GGM basis, and an argument given as ('shard', array) is passed
+    through ``shard_omega``."""
+    from filter_functions_tpu_torch import parallel
+    from filter_functions_tpu_torch.parallel import sharding
+    meshes, out = {}, []
+    for shape, name, kwargs in calls:
+        if shape not in meshes:
+            meshes[shape] = parallel.make_mesh(shape[0] * shape[1],
+                                               batch=shape[0], device='cpu')
+        mesh = meshes[shape]
+        kwargs = dict(kwargs)
+        for key, value in kwargs.items():
+            if key == 'p':
+                kwargs[key] = pulse_arrays(value)
+            elif key == 'basis':
+                kwargs[key] = fft.Basis.ggm(value)
+            elif isinstance(value, tuple) and value[0] == 'shard':
+                kwargs[key] = parallel.shard_omega(torch.tensor(value[1]),
+                                                   mesh)
+            elif isinstance(value, np.ndarray):
+                kwargs[key] = torch.tensor(value)
+        sharding.collectives = []
+        result = getattr(parallel, name)(mesh=mesh, **kwargs)
+        reduced = list(sharding.collectives)
+        results = result if isinstance(result, tuple) else (result,)
+        local = [tuple(r.to_local().shape) for r in results]
+        full = tuple(_np(r) for r in results)
+        out.append((full if isinstance(result, tuple) else full[0], reduced,
+                    local))
+    return out
+
+
+def rank_raises(calls):
+    """For each call of *calls* as in :func:`rank_sharded_calls` (or, with
+    a name None, ``make_mesh(n_devices, batch)`` for a shape (n_devices,
+    batch)), the name of the exception it raises (None if it returns)."""
+    from filter_functions_tpu_torch import parallel
+    return [_raised(parallel.make_mesh, *call[0], 'cpu') if call[1] is None
+            else _raised(rank_sharded_calls, [call])
+            for call in calls]
+
+
+def rank_grape_steps(shape, p, spectrum, omega, n_steps, learning_rate):
+    """*n_steps* chained grape_step calls on a mesh of *shape*: [(new
+    c_coeffs, loss, collectives)] per step."""
+    from filter_functions_tpu_torch import parallel
+    from filter_functions_tpu_torch.parallel import sharding
+    mesh = parallel.make_mesh(shape[0] * shape[1], batch=shape[0],
+                              device='cpu')
+    pulses = pulse_arrays(p)
+    c = pulses.c_coeffs
+    spectrum, omega = torch.tensor(spectrum), torch.tensor(omega)
+    out = []
+    for _ in range(n_steps):
+        sharding.collectives = []
+        c, loss = parallel.grape_step(c, pulses, spectrum, omega, mesh,
+                                      learning_rate=learning_rate)
+        out.append((_np(c), _np(loss), list(sharding.collectives)))
+    return out
+
+
+def _raised(fn, *args):
+    try:
+        fn(*args)
+    except Exception as exc:       # noqa: BLE001 - the test reads the name
+        return type(exc).__name__
+    return None
+
+
+def rank_optimize(cases):
+    """optimize_pulse for each (mesh shape, p, spectrum, omega, kwargs,
+    regularizer) of *cases*, the regularizer named in
+    :data:`REGULARIZERS` (or None): [(c_coeffs, infidelity, history,
+    collectives)]."""
+    from filter_functions_tpu_torch import parallel
+    from filter_functions_tpu_torch.parallel import sharding
+    out = []
+    for shape, p, spectrum, omega, kwargs, regularizer in cases:
+        mesh = parallel.make_mesh(shape[0] * shape[1], batch=shape[0],
+                                  device='cpu')
+        sharding.collectives = []
+        res = parallel.optimize_pulse(
+            pulse_arrays(p), torch.tensor(spectrum), torch.tensor(omega),
+            mesh=mesh, regularizer=REGULARIZERS.get(regularizer), **kwargs)
+        reduced = list(sharding.collectives)
+        out.append(tuple(_np(x) for x in res) + (reduced,))
+    return out
+
+
+def rank_group_of_one(p, spectrum, omega, chunk_size):
+    """make_mesh without a process group: the errors it raises, the group
+    of one it creates, and sharded_batched_infidelity on that mesh
+    against the unsharded call (torch.equal) with its collectives."""
+    import torch.distributed as dist
+    from filter_functions_tpu_torch import functional, parallel
+    from filter_functions_tpu_torch.parallel import sharding
+    errors = [_raised(parallel.make_mesh, 2, 1, 'cpu')]
+    if not torch.cuda.is_available():
+        errors.append(_raised(parallel.make_mesh, None, 1, 'cuda'))
+    mesh = parallel.make_mesh(device='cpu')
+    pulses = pulse_arrays(p)
+    spectrum, omega = torch.tensor(spectrum), torch.tensor(omega)
+    sharding.collectives = []
+    got = parallel.sharded_batched_infidelity(pulses, spectrum, omega, mesh,
+                                              chunk_size=chunk_size)
+    reduced = list(sharding.collectives)
+    want = functional.batched_infidelity(pulses, spectrum, omega,
+                                         chunk_size=chunk_size)
+    return dict(errors=errors, world=dist.get_world_size(),
+                shape=tuple(mesh.shape), names=mesh.mesh_dim_names,
+                equal=torch.equal(got.full_tensor(), want),
+                collectives=reduced)
+
+
+def _power_penalty(c):
+    return 1e3 * (c**2).sum()
+
+
+def _slew_penalty(c):
+    """Couples neighbouring candidates of a batch, so that it does not
+    separate by rows."""
+    return 1e2 * ((c[1:] - c[:-1])**2).sum() + (c**2).sum()
+
+
+#: Regularizers by name: a spawned rank takes them from here.
+REGULARIZERS = {'power': _power_penalty, 'slew': _slew_penalty}
