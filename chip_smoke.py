@@ -56,6 +56,32 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       second-order part of row 0's cumulant function within 1e-15, and
       rows 0 and 63 within 1e-12 of the CPU; times 5 calls, median in ms
       per evaluation.
+   c. The second-order term from the separable tables of the K2
+      lattice (the port's only from-scratch route) against the
+      (n_omega, d^4) lattice it replaces, each call timed as the median
+      of 5 with the peak device memory of those calls; no kernel
+      launches (the count is checked unchanged).  (i) 7b's inputs: the
+      batched ETM for 1e-4/omega and for a real cross-spectrum (2, 2,
+      200) of 1e-4/omega on the diagonal and 0.5e-4/omega off it (F^(2),
+      not the folded shifts); rows 0 and 63 of each within 1e-13 of the
+      object path's ETM on the cached lattice
+      (``cache_filter_function(order=2, cache_intermediates=True)``).
+      (ii) The 3-qubit QFT pulse at full width
+      (``qft.qft_pulse_arrays(3)``: d = 8, 10 segments, 12 + 12
+      operators, 64-element GGM basis), 1000 frequencies in
+      geomspace(1e-2, 1e2), S = 1e-4/omega, batch 8 with rows 1-7 scaled
+      as the flagship batch: the batched second-order ETM, finite.  64
+      elements is the widest basis whose dense trace combos the
+      functional ETM holds (at 256 they are 34 GB).  (iii) The
+      flagship's frequency shifts (row 0 of phase 4's inputs, d = 16,
+      1000 frequencies): ``numeric._second_order_diag_shifts`` on the
+      step terms that ``functional._etm_core`` builds, finite; the
+      lattice holds 1.05 GB per segment.  At each of (i)-(iii) the
+      frequency-reduced term of the shifts from the tables against
+      weights @ the K2 lattice (``reduced_term``), within 1e-13 (i) and
+      1e-12 (ii, iii) of its largest entry.  Neither package runs the
+      flagship's whole second-order ETM: F^(2) would be (18, 18, 256,
+      256, 1000) complex128, about 340 GB, and the trace combos 34 GB.
 8. gradients.
    a. ``torch.autograd.grad`` of the summed ``functional.
       batched_infidelity`` of phase 4's rows 0-3 (chunks of 2, 1000
@@ -191,8 +217,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       ``optimize_pulse`` for 5 steps, finite, with its launches; times a
       GRAPE step in ms per pulse, with its peak device memory.
 
-Before the last line come the card's label and the kernels' JSON
-record, in that order; the last line is
+After phases 3, 5, 6, 7a, 7b, 7c, 8, 9, 10 and 11 a line ``phase time:``
+gives the host-clock seconds since the one before.  Before the last line
+come the card's label and the kernels' JSON record, in that order; the
+last line is
 ``{"ok": true, "device": {...}}``.
 """
 import copy
@@ -257,6 +285,19 @@ ETM_BATCH_PARITY = 1e-13
 ANTISYMMETRY = 1e-15
 #: config_second_order's shapes: (d, segments, frequencies, batch).
 SO_SHAPE = (4, 8, 200, 64)
+#: 7c at 7b's inputs: the ETM rows from the separable tables against
+#: the object path's on the cached K2 lattice, and the frequency-reduced
+#: term against the lattice's relative to its largest entry.
+LATTICE_PARITY = 1e-13
+#: The frequency-reduced term at the 3-qubit QFT pulse and the
+#: flagship's, relative to its largest entry.
+WIDE_LATTICE_PARITY = 1e-12
+#: Lattice-size complex128 arrays per segment that the K2 lattice build
+#: holds at once (up to four inside it, the result and its frequency
+#: reduction): the chunks of 7c's plain version are counted with it.
+LATTICE_TEMPS = 6
+#: The 3-qubit QFT batch of 7c(ii): (qubits, frequencies, batch).
+QFT3_SHAPE = (3, 1000, 8)
 #: Pulses and chunk size of the flagship autograd (8a): every chunk's
 #: graph stays alive until the backward pass.
 GRAD_BATCH = 4
@@ -415,18 +456,24 @@ def check_kernel(device, card):
     return result
 
 
-def flagship_inputs(device):
-    """bench.py's flagship batch: the QFT pulse in row 0, rows 1-31 with
-    control coefficients scaled by 1 + 0.05 N(0, 1) from
-    default_rng(0)."""
-    p = qft.qft_pulse_arrays(4, device=device)
+def _jittered(p, batch):
+    """*batch* copies of the pulse *p*: row 0 as it is, the other rows
+    with control coefficients scaled by 1 + 0.05 N(0, 1) from
+    default_rng(0), as bench.py's flagship batch."""
     rng = np.random.default_rng(0)
-    scales = 1 + 0.05 * rng.standard_normal((BATCH, 1, 1))
+    scales = 1 + 0.05 * rng.standard_normal((batch, 1, 1))
     scales[0] = 1.0
-    batched = p._replace(
-        c_coeffs=p.c_coeffs[None] * torch.from_numpy(scales).to(device),
-        n_coeffs=p.n_coeffs.expand(BATCH, -1, -1).contiguous(),
-        dt=p.dt.expand(BATCH, -1).contiguous())
+    return p._replace(
+        c_coeffs=p.c_coeffs[None] * torch.from_numpy(scales).to(
+            p.c_coeffs.device),
+        n_coeffs=p.n_coeffs.expand(batch, -1, -1).contiguous(),
+        dt=p.dt.expand(batch, -1).contiguous())
+
+
+def flagship_inputs(device):
+    """bench.py's flagship batch: the QFT pulse in row 0, rows 1-31
+    jittered (:func:`_jittered`)."""
+    batched = _jittered(qft.qft_pulse_arrays(4, device=device), BATCH)
     omega = torch.from_numpy(np.geomspace(1e-2, 1e2, N_OMEGA)).to(device)
     return batched, omega, 1e-4 / omega
 
@@ -442,6 +489,13 @@ def main() -> int:
     card = _card_label()
     print(f'card: {card}; torch {torch.__version__}, CUDA '
           f'{torch.version.cuda}')
+    clock = [time.perf_counter()]
+
+    def lap(phases):
+        """Prints the host-clock seconds since the last lap."""
+        now = time.perf_counter()
+        print(f'phase time: {phases} {now - clock[0]:.2f} s')
+        clock[0] = now
 
     # 2. build
     t0 = time.perf_counter()
@@ -452,6 +506,7 @@ def main() -> int:
 
     # 3. kernel against plain version
     kernel_err, kernel_ms, plain_ms, bound_ms = check_kernel(device, card)
+    lap('2-3')
 
     # 4. main path
     batched, omega, spectrum = flagship_inputs(device)
@@ -509,20 +564,27 @@ def main() -> int:
               f'{N_TIMED}, batch {BATCH}, chunk {CHUNK}) [{card}]')
     print(f'peak device memory: '
           f'{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB')
+    lap('4-5')
 
     # 6. object path
     object_launches, object_infid = object_path(device, card, native[0],
                                                 infid[0])
+    lap('6')
 
     # 7. error transfer matrix
     etm_launches = etm_flagship(device, card, object_infid)
+    lap('7a')
     etm_second_order(device, card)
+    lap('7b')
+    table_launches = second_order_tables(device, card)
+    lap('7c')
 
     # 8. gradients
     grad_launches, grad_8a = autograd_flagship(device, card, batched, omega,
                                                spectrum)
     analytic_flagship(device, card)
     grad_config(device, card)
+    lap('8')
 
     # 9. concatenation in time
     concat_launches = {
@@ -530,7 +592,9 @@ def main() -> int:
         **concat_periodic(device, card),
         **concat_distinct(device, card, batched),
         'concatenate (d = 2 trains, dd, rb)': concat_small(device, card),
-        'concatenate (second order)': concat_second_order(device, card)}
+        'concatenate (second order)': concat_second_order(device, card),
+        'second-order tables (7c)': table_launches}
+    lap('9')
 
     # 10. composition in space, spectroscopy, exchange
     extended, space_launches = extend_flagship(device, card)
@@ -541,6 +605,7 @@ def main() -> int:
     space_launches['models.exchange.cnot_pulse'] = exchange_cnot(device,
                                                                  card)
     concat_launches.update(space_launches)
+    lap('10')
 
     # 11. the sharded paths
     mesh, shard_launches = sharded_flagship(device, card, batched, omega,
@@ -550,6 +615,7 @@ def main() -> int:
     concat_launches.update(grape_flagship(device, card, mesh, batched, omega,
                                           spectrum, grad_8a))
     torch.distributed.destroy_process_group()
+    lap('11')
 
     print(card)
     print(json.dumps({'kernels': [{
@@ -779,6 +845,184 @@ def etm_second_order(device, card) -> None:
         p, spectrum, omega, basis, second_order=True), N_TIMED)
     print(f'timing: etm second order {ms / batch:.4f} ms per evaluation '
           f'(median of {N_TIMED} calls of batch {batch}) [{card}]')
+
+
+def _timed(fn, device, card, label, per, unit):
+    """fn(): a first call whose result is returned, then the median of
+    N_TIMED calls in ms per *unit* (the call over *per*) and the peak
+    device memory of those calls, printed with the memory held before
+    them."""
+    out = fn()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    ms = _median_ms(fn, N_TIMED)
+    peak = torch.cuda.max_memory_allocated(device)
+    print(f'timing: {label} {ms / per:.4f} ms per {unit} (median of '
+          f'{N_TIMED}); peak device memory {peak / 2**30:.3f} GiB, '
+          f'{held / 2**30:.3f} GiB held before [{card}]')
+    return out
+
+
+def reduced_term(omega, eigvals, dt, weights, lattice=False):
+    """The frequency-reduced incomplete-step term ell[..., g, a, ij, mn]
+    = sum_w weights[a, w] I[..., g, w, ij, mn] of the frequency shifts,
+    over chunks of segments: from the separable tables
+    (``numeric._factored_weighted_lattice``, in the chunks of
+    ``numeric._second_order_diag_shifts``) or, as its plain version,
+    weights @ each chunk's K2 lattice I
+    (``numeric._second_order_integral_single``, LATTICE_TEMPS lattices
+    per segment against ``config.memory_budget``)."""
+    G, d = eigvals.shape[-2:]
+    lead = eigvals.shape[:-2]
+    n_nops, n_w = weights.shape
+    d2 = d * d
+    if lattice:
+        chunk = numeric._pick_chunk(
+            G, eigvals[..., 0, 0].numel() * n_w * d2 * d2 * LATTICE_TEMPS
+            * 16, config.memory_budget(eigvals.device))
+    else:
+        chunk = numeric._factored_chunk(eigvals, n_w, 8 * n_nops * d2)
+    parts = []
+    for start in range(0, G, chunk):
+        ev, seg_dt = eigvals[..., start:start + chunk, :], \
+            dt[..., start:start + chunk]
+        if not lattice:
+            parts.append(numeric._factored_weighted_lattice(
+                omega, ev, seg_dt, weights))
+            continue
+        int2 = numeric._second_order_integral_single(omega, ev, seg_dt)
+        g = int2.shape[-6]
+        ell = weights.to(int2.dtype) @ int2.reshape(*lead, g, n_w, d2 * d2)
+        parts.append(ell.reshape(*lead, g, n_nops, d2, d2))
+    return torch.cat(parts, -4)
+
+
+def _reduced_terms_agree(name, omega, eigvals, dt, weights, device, card,
+                         per, bound):
+    """Times the frequency-reduced term from the tables and from the K2
+    lattice (:func:`reduced_term`) and checks them within *bound* of
+    the largest entry."""
+    got = {kind: _timed(lambda: reduced_term(omega, eigvals, dt, weights,
+                                             kind == 'K2 lattice'),
+                        device, card, f'{name}, frequency-reduced term from '
+                        f'the {kind}', per, 'evaluation')
+           for kind in ('separable tables', 'K2 lattice')}
+    want = got['K2 lattice']
+    scale = want.abs().max().item()
+    rel = (got['separable tables'] - want).abs().max().item() / scale
+    print(f'{name}: frequency-reduced term {tuple(want.shape)}, tables '
+          f'against lattice max |diff| {rel:.6e} of the largest entry '
+          f'{scale:.6e} (bound {bound})')
+    _check(f'{name} tables against lattice', rel, bound)
+
+
+def qft3_inputs(device):
+    """7c(ii)'s inputs: (the 3-qubit QFT pulse's PulseArrays jittered to
+    a batch (:func:`_jittered`), its Basis, omega, 1e-4/omega)."""
+    n_qubits, n_w, batch = QFT3_SHAPE
+    p = _jittered(qft.qft_pulse_arrays(n_qubits, device=device), batch)
+    basis = qft.qft_pulse_sequence(n_qubits, device=device).basis
+    if not torch.equal(basis.tensor(device), p.basis):
+        raise AssertionError("7c(ii): the basis differs from the arrays'")
+    omega = torch.from_numpy(np.geomspace(1e-2, 1e2, n_w)).to(device)
+    return p, basis, omega, 1e-4 / omega
+
+
+def flagship_shift_inputs(device):
+    """7c(iii)'s inputs: the arguments of ``numeric.
+    _second_order_diag_shifts`` that ``functional._etm_core`` builds for
+    row 0 of the flagship batch (eigenvalues, transformed noise operators
+    and basis, per-step and padded cumulative control matrices, omega,
+    dt, the weights of S = 1e-4/omega)."""
+    batched, omega, spectrum = flagship_inputs(device)
+    p = batched._replace(c_coeffs=batched.c_coeffs[0],
+                         n_coeffs=batched.n_coeffs[0], dt=batched.dt[0])
+    eigvals, (_, n_t, b_t, ph, integral), _ = functional._prep(
+        p, p.c_coeffs, p.n_coeffs, p.dt, omega)
+    step = numeric._ctrlmat_step_contract(n_t, integral, b_t, ph)
+    cumul_padded = numeric._pad_cumulative(
+        step, step.cumsum(-4)[..., :-1, :, :, :])
+    weights = numeric._spectral_weights(spectrum, omega, p.n_opers.shape[0])
+    return eigvals, n_t, b_t, step, cumul_padded, omega, p.dt, weights
+
+
+def second_order_tables(device, card) -> int:
+    """Phase 7c: the second-order term from the separable tables of the
+    K2 lattice, against the lattice, at 7b's inputs, at the 3-qubit QFT
+    pulse and on the flagship's frequency shifts; returns the kernel's
+    launches (none)."""
+    launches = dword.launches
+
+    # (i) 7b's inputs, a diagonal and a cross-spectrum
+    d, _, _, batch = SO_SHAPE
+    p, host, basis, omega, spectrum = second_order_inputs(device)
+    cross = torch.stack([torch.stack([spectrum, spectrum / 2]),
+                         torch.stack([spectrum / 2, spectrum])])
+    for kind, s in (('diagonal', spectrum), ('cross', cross)):
+        etm = _timed(lambda: functional.batched_error_transfer_matrix(
+            p, s, omega, basis, second_order=True), device, card,
+            f'7c(i) second-order ETM at 7b, {kind} spectrum', batch,
+            'evaluation')
+        if etm.shape != (batch, d * d, d * d) or \
+                not torch.isfinite(etm).all():
+            raise AssertionError(f'7c(i): bad ETM, {kind} spectrum')
+        for b in (0, batch - 1):
+            pulse = fft.PulseSequence.from_arrays(
+                host['c_opers'], ['A', 'B'], host['c_coeffs'][b],
+                host['n_opers'], ['a', 'b'], host['n_coeffs'][b],
+                host['dt'][b], basis=basis, device=device)
+            pulse.cache_filter_function(omega, order=2,
+                                        cache_intermediates=True)
+            lattice = fft.error_transfer_matrix(pulse, s, omega,
+                                                second_order=True)
+            diff = (etm[b] - lattice).abs().max().item()
+            print(f'7c(i): {kind} spectrum, row {b} against the object '
+                  f'path on the cached K2 lattice max |diff| {diff:.6e} '
+                  f'(bound {LATTICE_PARITY})')
+            _check(f'7c(i) {kind} row {b} against the lattice', diff,
+                   LATTICE_PARITY)
+    eigvals = functional._prep(p, p.c_coeffs, p.n_coeffs, p.dt, omega)[0]
+    _reduced_terms_agree('7c(i)', omega, eigvals, p.dt,
+                         numeric._spectral_weights(spectrum, omega, 2),
+                         device, card, batch, LATTICE_PARITY)
+    del p, eigvals, etm
+
+    # (ii) the 3-qubit QFT pulse at full width
+    p, basis, omega, spectrum = qft3_inputs(device)
+    n_qubits, n_w, batch = QFT3_SHAPE
+    n_b = len(basis)
+    etm = _timed(lambda: functional.batched_error_transfer_matrix(
+        p, spectrum, omega, basis, second_order=True), device, card,
+        f'7c(ii) second-order ETM of the {n_qubits}-qubit QFT pulse (d = '
+        f'{p.c_opers.shape[-1]}, {n_b} basis elements, {n_w} frequencies, '
+        f'batch {batch})', batch, 'evaluation')
+    if etm.shape != (batch, n_b, n_b) or not torch.isfinite(etm).all():
+        raise AssertionError('7c(ii): bad ETM')
+    eigvals = functional._prep(p, p.c_coeffs, p.n_coeffs, p.dt, omega)[0]
+    weights = numeric._spectral_weights(spectrum, omega, p.n_opers.shape[0])
+    _reduced_terms_agree('7c(ii)', omega, eigvals, p.dt, weights, device,
+                         card, batch, WIDE_LATTICE_PARITY)
+    del p, basis, eigvals, etm
+
+    # (iii) the flagship's frequency shifts
+    args = flagship_shift_inputs(device)
+    shifts = _timed(lambda: numeric._second_order_diag_shifts(*args),
+                    device, card, f'7c(iii) flagship frequency shifts '
+                    f'({N_OMEGA} frequencies)', 1, 'call')
+    print(f'7c(iii): shifts {tuple(shifts.shape)}, largest entry '
+          f'{shifts.abs().max().item():.6e}')
+    if not torch.isfinite(shifts).all():
+        raise AssertionError('7c(iii): the shifts are not finite')
+    eigvals, _, _, _, _, omega, dt, weights = args
+    _reduced_terms_agree('7c(iii)', omega, eigvals, dt, weights, device,
+                         card, 1, WIDE_LATTICE_PARITY)
+
+    launches = dword.launches - launches
+    print(f'7c: dword_digits launches {launches}')
+    if launches:
+        raise AssertionError('7c launched the kernel')
+    return launches
 
 
 def _infidelity_grad(p, spectrum, omega, chunk_size=None, contract=None):

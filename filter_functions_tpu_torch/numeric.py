@@ -239,11 +239,12 @@ _SO_SMALL_K = 6
 _SO_SERIES_W = 0.2
 #: Maclaurin terms: 0.2^13/13! ~ 1e-19 relative.
 _SO_SERIES_J = 12
-#: Lattice-size complex128 arrays per segment that a chunked K2
-#: accumulation holds at once: up to four inside the build (the general
-#: form, the series, a Horner step's product and sum), the result and
-#: what its caller derives from it.
-_SO_LATTICE_TEMPS = 6
+#: (n_w, d^2)-size complex128 arrays per segment that the separable
+#: tables hold at once, most of them inside :func:`_frac_divdiff_coeffs`
+#: (the series and closed-form branches of its _SO_SMALL_K coefficients,
+#: their powers and products); scripts/torch_etm_stages.py measures them
+#: on a CUDA card.
+_SO_FACTORED_TEMPS = 36
 
 
 @functools.lru_cache(maxsize=None)
@@ -399,6 +400,81 @@ def _second_order_integral_single(omega: torch.Tensor, eigvals: torch.Tensor,
     out = torch.where(mask_y[..., :, None, :], general,
                       special[..., :, :, None])
     return out.reshape(*lead, n_w, d, d, d, d)
+
+
+def _second_order_factored_single(omega: torch.Tensor, eigvals: torch.Tensor,
+                                  dt: torch.Tensor):
+    r"""Separable tables of the K2 lattice of segments with eigenvalues
+    *eigvals* (..., d) and durations *dt* (...), for omega (n_w,).
+
+    Every branch of :func:`_second_order_integral_single` is a sum of
+    products of a table over (o, ij) or (ij, mn) and one over (o, mn):
+
+        I[o, ij, mn] = f_x[o, ij] r_big[o, mn] - f_z[ij, mn] r_big[o, mn]
+                       + special[o, ij] m0[o, mn]
+                       + sum_k dks[k, o, ij] yks[k, o, mn],
+
+    so a contraction of I against an (mn)- or (ij)-indexed operand
+    never needs the (n_w, d^4) lattice.  r_big = 1/y where
+    |y dt| >= _SO_SMALL_Y (the general form), m0 = 1 where y == 0 (the
+    limit ``special``, independent of mn), and the divided-difference
+    series D_k(x) y^k of 0 < |y dt| < _SO_SMALL_Y is split
+    scale-invariantly as dks_k = D_k(x)/dt^k and yks_k = (y dt)^k, zero
+    off that branch.  The general form cancels as ~eps/|y dt|, so the
+    factored route keeps ~2 eps/_SO_SMALL_Y ~ 4e-13 relative where the
+    lattice subtracts the two nearby values directly.
+
+    Returns (f_x, special, f_z, r_big, m0, dks, yks): complex
+    (..., n_w, d^2), complex (..., n_w, d^2), complex (..., d^2, d^2),
+    real (..., n_w, d^2), real (..., n_w, d^2), complex
+    (..., _SO_SMALL_K, n_w, d^2), real (..., _SO_SMALL_K, n_w, d^2),
+    with ij and mn flattened row-major, as the JAX package's
+    ``_second_order_factored_single`` under ``vmap``.
+    """
+    d = eigvals.shape[-1]
+    lead = eigvals.shape[:-1]
+    dE = (eigvals[..., :, None] - eigvals[..., None, :]).reshape(*lead,
+                                                                  d * d)
+    dt_o = dt[..., None, None]
+    x = dE[..., None, :] - omega[:, None]                 # (o, ij)
+    y = omega[:, None] + dE[..., None, :]                 # (o, mn)
+    z = dE[..., :, None] + dE[..., None, :]               # (ij, mn)
+
+    a = -omega * dt[..., None]
+    sa, ca = torch.sin(a)[..., :, None], torch.cos(a)[..., :, None]
+    b = dE * dt[..., None]
+    sb, cb = torch.sin(b)[..., None, :], torch.cos(b)[..., None, :]
+    sin_x = sb * ca + cb * sa
+    cos_x = cb * ca - sb * sa
+
+    f_x = torch.complex(*_frac_from_trig(x, sin_x, cos_x, dt_o))
+    zdt = z * dt_o
+    f_z = torch.complex(*_frac_from_trig(z, torch.sin(zdt), torch.cos(zdt),
+                                         dt_o))
+
+    ydt = y * dt_o
+    mask_y = y != 0.0
+    small_y = mask_y & (torch.abs(ydt) < _SO_SMALL_Y)
+    big_y = mask_y & ~small_y
+    r_big = torch.where(big_y, 1.0 / torch.where(big_y, y, 1.0), 0.0)
+    m0 = (~mask_y).to(config.REAL)
+
+    k_shape = (_SO_SMALL_K,) + (1,) * dt.ndim
+    dt_pow = dt[None] ** -torch.arange(_SO_SMALL_K, dtype=dt.dtype,
+                                       device=dt.device).reshape(k_shape)
+    dks = _frac_divdiff_coeffs(a, b, dt, _SO_SMALL_K, sin_x, cos_x) \
+        * dt_pow[..., None, None]                         # (k, ..., o, ij)
+    yks = torch.cumprod(torch.cat(
+        [small_y.to(config.REAL)[None],
+         ydt.expand(_SO_SMALL_K - 1, *ydt.shape)]), 0)    # (k, ..., o, mn)
+
+    mask_x = x != 0.0
+    r_x = 1.0 / torch.where(mask_x, x, 1.0)
+    num = f_x - torch.complex(-sin_x * dt_o, cos_x * dt_o)
+    limit = (dt_o * dt_o / 2).expand_as(x).to(config.COMPLEX)
+    special = torch.where(mask_x, num * r_x, limit)
+    return (f_x, special, f_z, r_big, m0, dks.movedim(0, -3),
+            yks.movedim(0, -3))
 
 
 def _ctrlmat_step_terms(eigvals, eigvecs, propagators, omega, basis,
@@ -1031,17 +1107,101 @@ def _second_order_complete(ctrlmat_step: torch.Tensor,
     return _perm_tail(comp, 1, 3, 2, 4, 0)
 
 
-def _lattice_chunk(eigvals: torch.Tensor, n_w: int, extra: int,
-                   budget_bytes: Optional[int] = None) -> int:
-    """Segments per step of a chunked second-order accumulation: each
-    segment (with every leading batch index) costs the
-    :data:`_SO_LATTICE_TEMPS` lattice-size arrays of its K2 build plus
-    *extra* complex128 elements per (w, ij) of the contraction."""
-    G, d = eigvals.shape[-2:]
+def _factored_chunk(eigvals: torch.Tensor, n_w: int, extra: int,
+                    budget_bytes: Optional[int] = None, fixed: int = 0
+                    ) -> int:
+    """Segments per step of a chunked second-order accumulation that fits
+    :func:`.config.memory_budget` (*budget_bytes* overrides it): each
+    segment, with every leading batch index, costs the
+    :data:`_SO_FACTORED_TEMPS` table-size arrays of its build plus
+    *extra* complex128 elements per frequency of the contraction, and
+    each step *fixed* complex128 elements per batch index whatever its
+    number of segments (its output)."""
     batch = math.prod(eigvals.shape[:-2])
-    per_g = batch * n_w * d * d * (_SO_LATTICE_TEMPS * d * d + extra) * 16
-    return _pick_chunk(G, per_g, config.memory_budget(
-        eigvals.device, budget_bytes=budget_bytes))
+    d2 = eigvals.shape[-1] ** 2
+    budget = config.memory_budget(eigvals.device, budget_bytes=budget_bytes)
+    return _pick_chunk(eigvals.shape[-2],
+                       batch * n_w * (_SO_FACTORED_TEMPS * d2 + extra) * 16,
+                       budget - batch * fixed * 16)
+
+
+def _mm_real(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x @ y of one complex128 and one float64 operand, as two float64
+    products: half the work of the complex128 product."""
+    if x.is_complex():
+        return torch.complex(x.real @ y, x.imag @ y)
+    return torch.complex(x @ y.real, x @ y.imag)
+
+
+def _factored_stacks(omega, eigvals, dt):
+    """The tables of :func:`_second_order_factored_single` stacked by
+    term t, so that I = sum_t left_t[o, ij] right_t[o, mn]
+    - f_z[ij, mn] r_big[o, mn]: (left (..., 2 + K, n_w, d^2) complex,
+    the ij-indexed f_x, special and dks; right (..., 2 + K, n_w, d^2)
+    real, the mn-indexed r_big, m0 and yks; f_z; r_big)."""
+    f_x, special, f_z, r_big, m0, dks, yks = _second_order_factored_single(
+        omega, eigvals, dt)
+    left = torch.cat([f_x[..., None, :, :], special[..., None, :, :], dks],
+                     -3)
+    right = torch.cat([r_big[..., None, :, :], m0[..., None, :, :], yks],
+                      -3)
+    return left, right, f_z, r_big
+
+
+def _second_order_factored_contract(omega, eigvals, dt, nob: torch.Tensor
+                                    ) -> torch.Tensor:
+    r"""The incomplete-step contraction of
+    :func:`_second_order_incomplete_contract` from the separable tables
+    of segments *eigvals* (..., g, d), *dt* (..., g), without the K2
+    lattice::
+
+        S[o, A, B] = sum_{g, t} (N left_t^T)[g, A, o] (right_t N^T)[g, o, B]
+                     - sum_{g, m} (N f_z)[g, A, m] r_big[g, o, m] N[g, B, m]
+
+    with N = *nob* (..., g, n_nops, n_b, d^2) and A = B = (a k): one
+    o-batched matmul over (g, t) and one matmul over (g, m).  Returns
+    (..., n_nops, n_nops, n_b, n_b, n_w).
+    """
+    g, n_nops, n_basis, d2 = nob.shape[-4:]
+    lead = nob.shape[:-4]
+    n_w = omega.shape[-1]
+    A = n_nops * n_basis
+    nob = nob.reshape(*lead, g, A, d2)
+    left, right, f_z, r_big = _factored_stacks(omega, eigvals, dt)
+    n_t = left.shape[-3]
+
+    def by_omega(v):                        # (g, (t o), A) -> (o, (g t), A)
+        return v.reshape(*lead, g * n_t, n_w, A).transpose(-3, -2)
+    n_left = left.reshape(*lead, g, n_t * n_w, d2) @ nob.mT
+    n_right = _mm_real(right.reshape(*lead, g, n_t * n_w, d2), nob.mT)
+    s = by_omega(n_left).mT @ by_omega(n_right)          # (o, A, B)
+
+    n_z = (nob @ f_z).transpose(-3, -2).reshape(*lead, A, g * d2)
+    r_nob = r_big.mT[..., :, :, :, None] * nob.mT[..., :, :, None, :]
+    f_z_term = n_z @ r_nob.reshape(*lead, g * d2, n_w * A)  # (A, (o B))
+    s = s - f_z_term.reshape(*lead, A, n_w, A).transpose(-3, -2)
+    return _perm_tail(s.reshape(*lead, n_w, n_nops, n_basis, n_nops,
+                                n_basis), 1, 3, 2, 4, 0)
+
+
+def _factored_weighted_lattice(omega, eigvals, dt, weights: torch.Tensor
+                               ) -> torch.Tensor:
+    r"""ell[..., g, a, ij, mn] = sum_o weights[a, o] I[..., g, o, ij, mn]
+    of segments *eigvals* (..., g, d), *dt* (..., g), from the separable
+    tables, without the K2 lattice: the weights fold into the real
+    mn-indexed tables, one matmul reduces over (t, o), and the general
+    form's f_z term reduces over o on its own.  *weights* (n_nops, n_w)
+    real.  Returns complex (..., g, n_nops, d^2, d^2): weights @ the K2
+    lattice of :func:`_second_order_integral_single`."""
+    left, right, f_z, r_big = _factored_stacks(omega, eigvals, dt)
+    n_t, n_w, d2 = left.shape[-3:]
+    lead = left.shape[:-3]
+    n_nops = weights.shape[0]
+    folded = right[..., :, :, None, :] * weights.mT[:, :, None]
+    ell = _mm_real(left.reshape(*lead, n_t * n_w, d2).mT,
+                   folded.reshape(*lead, n_t * n_w, n_nops * d2))
+    ell = ell.reshape(*lead, d2, n_nops, d2).transpose(-3, -2)
+    return ell - f_z[..., None, :, :] * (weights @ r_big)[..., :, None, :]
 
 
 def _second_order_total(eigvals, n_opers_transformed, basis_transformed,
@@ -1049,28 +1209,31 @@ def _second_order_total(eigvals, n_opers_transformed, basis_transformed,
                         budget_bytes: Optional[int] = None) -> torch.Tensor:
     r"""K10 total without per-step caching: the complete steps as one
     batched matmul (:func:`_second_order_complete`), the incomplete
-    steps as the two-stage matmul of
-    :func:`_second_order_incomplete_contract` over chunks of segments
-    whose K2 lattices fit :func:`.config.memory_budget`.
+    steps from the separable tables of the K2 lattice
+    (:func:`_second_order_factored_contract`) over chunks of segments
+    that fit :func:`.config.memory_budget` (*budget_bytes* overrides
+    it), without the (n_w, d^4) lattice.
 
     eigvals (..., G, d), n_opers_transformed (..., n_nops, G, d, d),
     basis_transformed (..., G, n_b, d, d), ctrlmat_step and
     cumul_padded (..., G, n_nops, n_b, n_w), dt (..., G).  Returns
     (..., n_nops, n_nops, n_b, n_b, n_w).
     """
-    G = eigvals.shape[-2]
+    G, d = eigvals.shape[-2:]
+    n_w = len(omega)
     nob = _noise_basis_products(n_opers_transformed, basis_transformed)
     n_nops, n_basis = nob.shape[-3:-1]
-    # the first stage's product and its transposed copy
-    chunk = _lattice_chunk(eigvals, len(omega), 2 * n_nops * n_basis,
-                           budget_bytes)
+    A = n_nops * n_basis
+    # per segment the f_z term's (ij, o, B) operand, the stacked products
+    # and their o-major copies; per step its (n_w, A, A) product, the f_z
+    # term, their difference and its permuted copy
+    chunk = _factored_chunk(eigvals, n_w, (d * d + 4 * (2 + _SO_SMALL_K)) * A,
+                            budget_bytes, fixed=4 * n_w * A * A)
     total = _second_order_complete(ctrlmat_step, cumul_padded)
     for start in range(0, G, chunk):
         sl = slice(start, start + chunk)
-        int2 = _second_order_integral_single(omega, eigvals[..., sl, :],
-                                             dt[..., sl])
-        total = total + _second_order_incomplete_contract(
-            int2, nob[..., sl, :, :, :])
+        total = total + _second_order_factored_contract(
+            omega, eigvals[..., sl, :], dt[..., sl], nob[..., sl, :, :, :])
     return total
 
 
@@ -1119,12 +1282,14 @@ def calculate_second_order_filter_function_from_scratch(
 
     Without ``cache_intermediates`` the segment sum runs as batched
     matmuls in chunks that fit :func:`.config.memory_budget`
-    (*budget_bytes* overrides it).  With it, segment by segment, and
-    the result comes with a dict of the intermediates:
-    ``second_order_integral`` (G, n_w, d, d, d, d),
+    (*budget_bytes* overrides it), on the separable tables of the K2
+    lattice (:func:`_second_order_total`), which it never builds.  With
+    it, segment by segment, and the result comes with a dict of the
+    intermediates: ``second_order_integral`` (G, n_w, d, d, d, d),
     ``second_order_complete_steps`` and, with ``cache_cumulative``,
     ``filter_function_2_step_cumulative`` (G, ...), F^(2) of each
-    prefix.
+    prefix.  The cache holds the K2 lattice, so caching builds it, as
+    the JAX package's segment scan does.
     """
     device = eigvals.device
 
@@ -1291,11 +1456,11 @@ def _second_order_diag_shifts(eigvals, n_opers_transformed,
 
     A diagonal spectrum reads only the a == b diagonal of F^(2).  The
     complete steps contract over (g, w) jointly in one a-batched
-    matmul; the incomplete steps reduce each chunk's K2 lattice over
-    w first (ell = weights @ lattice, (g, a, ij, mn)) and sandwich the
-    result between the noise-operator/basis products.  The chunks of
-    segments fit :func:`.config.memory_budget` (*budget_bytes*
-    overrides it).
+    matmul; the incomplete steps reduce each chunk of segments over w
+    first, to ell (g, a, ij, mn) from the separable tables of the K2
+    lattice (:func:`_factored_weighted_lattice`), and sandwich the
+    result between the noise-operator/basis products.  The chunks fit
+    :func:`.config.memory_budget` (*budget_bytes* overrides it).
 
     Shapes as :func:`_second_order_total`; *weights* (n_nops, n_w)
     real, S_a(w) w_trapz / 2 pi.  Returns complex (..., n_nops, n_b,
@@ -1303,7 +1468,6 @@ def _second_order_diag_shifts(eigvals, n_opers_transformed,
     """
     G, d = eigvals.shape[-2:]
     lead = eigvals.shape[:-2]
-    d2 = d * d
     n_nops, n_basis, n_w = ctrlmat_step.shape[-3:]
     nob = _noise_basis_products(n_opers_transformed, basis_transformed)
     w = weights.to(config.COMPLEX)
@@ -1314,15 +1478,14 @@ def _second_order_diag_shifts(eigvals, n_opers_transformed,
     ys = _perm_tail(cumul_padded, 1, 0, 3, 2).reshape(*lead, n_nops,
                                                       G * n_w, n_basis)
     shifts = xs @ ys
+    del xs, ys              # control-matrix-sized: not held by the chunks
 
-    chunk = _lattice_chunk(eigvals, n_w, 0, budget_bytes)
+    # the weighted right-hand tables and the product's workspace
+    chunk = _factored_chunk(eigvals, n_w, 8 * n_nops * d * d, budget_bytes)
     for start in range(0, G, chunk):
         sl = slice(start, start + chunk)
-        int2 = _second_order_integral_single(omega, eigvals[..., sl, :],
-                                             dt[..., sl])
-        g = int2.shape[-6]
-        ell = w @ int2.reshape(*lead, g, n_w, d2 * d2)    # (g, a, ij mn)
-        ell = ell.reshape(*lead, g, n_nops, d2, d2)
+        ell = _factored_weighted_lattice(omega, eigvals[..., sl, :],
+                                         dt[..., sl], weights)
         nob_c = nob[..., sl, :, :, :]                     # (g, a, k, ij)
         shifts = shifts + (nob_c @ (ell @ nob_c.mT)).sum(-4)
     return shifts

@@ -3,11 +3,15 @@ card: chip_smoke.py's phases 7a (the flagship's first-order ETM through
 the object API, one cold call) and 7b (the batched second-order ETM at
 bench.py's config_second_order inputs), split into the stages the call
 runs, each timed on the host clock with a synchronize after it (median
-of 7).  Also, per workload, the device time of the whole call from
-torch.profiler over 3 calls and the idle share it implies, the peak
-device memory of 7b's K2 lattice build against the lattice's size, and
-the d = 2 cumulant function (one matmul with the closed form's combos)
-against the closed form written elementwise.
+of 7); 7b's also times the K2 lattice build, which the call no longer
+runs, beside the separable tables that replace it.  Also, per workload and for 7c's (ii) and (iii) (the 3-qubit QFT
+batch's second-order ETM, the flagship's frequency shifts), the device
+time of the whole call from torch.profiler over 3 calls, the idle share
+it implies and the share of matrix-product kernels in it; the peak
+device memory of one segment's K2 lattice build and of its separable
+tables against the counts the chunking uses; and the d = 2 cumulant
+function (one matmul with the closed form's combos) against the closed
+form written elementwise.
 
     python3 scripts/torch_etm_stages.py [PROFILE_TABLES]
 
@@ -33,6 +37,8 @@ from filter_functions_tpu_torch.models import qft  # noqa: E402
 
 ROUNDS = 7
 PROFILED = 3
+#: Substrings of the names of matrix-product kernels.
+GEMM_NAMES = ('gemm', 'Gemm', 'GEMM', 'cutlass', 'xmma')
 
 
 def _sync_time(fn):
@@ -74,12 +80,16 @@ def _end_to_end(name, fn, setup, card, log):
         torch.cuda.synchronize()
     averages = prof.key_averages()
     # kernel rows only: an op's row repeats its kernels' device time
-    device = sum(e.self_device_time_total for e in averages
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 ) / 1e3 / PROFILED
+    kernels = [e for e in averages
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(e.self_device_time_total for e in kernels) / 1e3 / PROFILED
+    gemm = sum(e.self_device_time_total for e in kernels
+               if any(g in e.key for g in GEMM_NAMES)) / 1e3 / PROFILED
     print(f'{name}: {wall:.4f} ms per call (median of {ROUNDS}); profiler '
-          f'device time {device:.4f} ms per call, idle share '
-          f'{1 - device / wall:.3f} [{card}]')
+          f'device time {device:.4f} ms per call in '
+          f'{sum(e.count for e in kernels) / PROFILED:.0f} kernels, idle '
+          f'share {1 - device / wall:.3f}, matrix products '
+          f'{gemm / device:.3f} of it [{card}]')
     log.write(f'== {name}\n' + averages.table(
         sort_by='self_device_time_total', row_limit=15) + '\n')
     return wall
@@ -147,6 +157,9 @@ def second_order(device, card, log):
         st['gamma'] = numeric._folded_decay_amplitudes(st['step'].sum(-4),
                                                        st['w'])
 
+    def tables(st):
+        numeric._second_order_factored_single(omega, st['eigvals'], p.dt)
+
     def lattice(st):
         numeric._second_order_integral_single(omega, st['eigvals'], p.dt)
 
@@ -166,23 +179,17 @@ def second_order(device, card, log):
         numeric._expm(st['k'].sum(-3))
 
     _stages('7b', [('prep', prep), ('per-step contraction', step),
-                   ('decay amplitudes', gamma), ('K2 lattice alone', lattice),
+                   ('decay amplitudes', gamma), ('K2 tables alone', tables),
+                   ('K2 lattice alone, not on the path', lattice),
                    ('frequency shifts', shifts), ('trace contraction', trace),
                    ('expm', expm)], dict, card)
 
     state = {}
     prep(state)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated(device)
-    torch.cuda.reset_peak_memory_stats(device)
-    out = numeric._second_order_integral_single(omega, state['eigvals'], p.dt)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated(device) - base
-    size = out.numel() * out.element_size()
-    print(f'7b K2 lattice build: lattice {size / 2**30:.3f} GiB, peak above '
-          f'its inputs {peak / 2**30:.3f} GiB = {peak / size:.2f} lattices '
-          f'(numeric._SO_LATTICE_TEMPS = {numeric._SO_LATTICE_TEMPS})')
-    del out, state
+    _segment_memory('7b', omega, state['eigvals'], p.dt,
+                    numeric._spectral_weights(s, omega, n_nops), len(basis),
+                    device, total=True)
+    del state
     torch.cuda.reset_peak_memory_stats(device)
     wall = _end_to_end('7b call', lambda: functional.
                        batched_error_transfer_matrix(
@@ -190,6 +197,79 @@ def second_order(device, card, log):
                        lambda: None, card, log)
     print(f'7b: {wall / batch:.4f} ms per evaluation; peak device memory '
           f'{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB')
+
+
+def _peak_above(fn, device):
+    """Peak device bytes of fn() above what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device) - base
+    del out
+    return peak
+
+
+def _segment_memory(name, omega, eigvals, dt, weights, n_basis, device,
+                    total=False):
+    """Peak memory of one segment (with its leading batch axes) of the
+    K2 lattice build (in lattices, against chip_smoke.LATTICE_TEMPS), of
+    the separable tables and of the shifts' term built from them (in
+    (n_w, d^2) tables, against numeric._SO_FACTORED_TEMPS and the extra
+    the shifts count); with *total*, also of the F^(2) term, whose step
+    counts four (n_w, A, A) arrays beside the segment's share (9.4 GB
+    per pulse at 7c(ii), 340 GB at 7c(iii))."""
+    ev, seg_dt = eigvals[..., :1, :], dt[..., :1]
+    d2 = ev.shape[-1] ** 2
+    n_nops = weights.shape[0]
+    batch = ev.shape[:-2].numel()
+    unit = batch * len(omega) * d2 * 16             # one (n_w, d^2) table
+    lattice = _peak_above(lambda: numeric._second_order_integral_single(
+        omega, ev, seg_dt), device)
+    tables = _peak_above(lambda: numeric._factored_stacks(omega, ev, seg_dt),
+                         device)
+    shifts = _peak_above(lambda: numeric._factored_weighted_lattice(
+        omega, ev, seg_dt, weights), device)
+    line = (f'{name}, one segment x {batch}: K2 lattice build '
+            f'{lattice / (unit * d2):.2f} lattices (counted '
+            f'{chip_smoke.LATTICE_TEMPS}); separable tables '
+            f'{tables / unit:.1f} tables (counted '
+            f'{numeric._SO_FACTORED_TEMPS}); shifts term '
+            f'{shifts / unit:.1f} (counted '
+            f'{numeric._SO_FACTORED_TEMPS + 8 * n_nops})')
+    if total:
+        nob = torch.zeros(*ev.shape[:-2], 1, n_nops, n_basis, d2,
+                          dtype=torch.complex128, device=device)
+        f2 = _peak_above(lambda: numeric._second_order_factored_contract(
+            omega, ev, seg_dt, nob), device)
+        a = n_nops * n_basis
+        counted = numeric._SO_FACTORED_TEMPS + (
+            d2 + 4 * (2 + numeric._SO_SMALL_K)) * a / d2 + 4 * a * a / d2
+        line += (f'; F^(2) term {f2 / unit:.1f} with its (n_w, A, A) '
+                 f'output (counted {counted:.1f})')
+    print(line)
+
+
+def second_order_tables(device, card, log):
+    """7c(ii) and (iii) as whole calls, and one segment's memory."""
+    p, basis, omega, spectrum = chip_smoke.qft3_inputs(device)
+    _end_to_end('7c(ii) call', lambda: functional.
+                batched_error_transfer_matrix(p, spectrum, omega, basis,
+                                              second_order=True),
+                lambda: None, card, log)
+    eigvals = functional._prep(p, p.c_coeffs, p.n_coeffs, p.dt, omega)[0]
+    weights = numeric._spectral_weights(spectrum, omega, p.n_opers.shape[0])
+    _segment_memory('7c(ii)', omega, eigvals, p.dt, weights, len(basis),
+                    device)
+    del p, eigvals
+
+    args = chip_smoke.flagship_shift_inputs(device)
+    _end_to_end('7c(iii) call', lambda: numeric._second_order_diag_shifts(
+        *args), lambda: None, card, log)
+    eigvals, _, b_t, _, _, omega, dt, weights = args
+    _segment_memory('7c(iii)', omega, eigvals, dt, weights, b_t.shape[-3],
+                    device)
 
 
 def _closed_form_elementwise(gamma, delta):
@@ -245,6 +325,7 @@ def main() -> int:
     log = io.StringIO()
     flagship(device, card, log)
     second_order(device, card, log)
+    second_order_tables(device, card, log)
     closed_form(device, card)
     if len(sys.argv) > 1:
         Path(sys.argv[1]).write_text(log.getvalue())

@@ -7,7 +7,9 @@ and method there takes at least the JAX package's keyword parameters.
 What the port leaves out on purpose is listed below with its reason
 (ROADMAP.md, "What the port leaves out" and §2.3); what is still to port
 is listed apart, and nothing is.  Both lists must stay exact: an entry
-that the port has after all fails the test.
+that the port has after all fails the test.  The JAX package's
+``FF_TPU_*`` settings are held the same way: each has its counterpart
+in the port or its reason.
 
 A keyword may keep its name with a torch meaning: ``parallel.
 optimize_pulse``'s ``optimizer`` is a callable ``params ->
@@ -17,6 +19,8 @@ transformation, and ``mesh`` is a ``torch.distributed`` DeviceMesh.
 import importlib
 import inspect
 import pkgutil
+import re
+from pathlib import Path
 
 import pytest
 
@@ -67,6 +71,52 @@ OMITTED_PARAMETERS = {
                     'package'},
     ('util', 'tensor_insert'): {'optimize': 'as util.tensor'},
     ('util', 'tensor_merge'): {'optimize': 'as util.tensor'},
+}
+
+#: The JAX package's FF_TPU_* settings that the port carries over, each
+#: with the names of its counterparts in the port (a constant, the
+#: function that resolves it, or both).
+PORTED_SETTINGS = {
+    'CONTRACT': ('config.contraction_mode',),
+    'MEMORY_BUDGET': ('config.memory_budget',),
+    'OZAKI_BITS': ('config.PRECISION_BITS',),
+    'OZAKI_BITS_DEEP': ('config.DEEP_PRECISION_BITS',),
+    'OZAKI_ESCALATE_TOL': ('config.ESCALATION_TOL',),
+}
+#: The FF_TPU_* settings the port leaves out, with reasons.
+OMITTED_SETTINGS = {
+    'EIGH': 'the choice of real-embedding, Ogita-Aishima or refined eigh '
+            'on a backend without complex128; the port calls '
+            'torch.linalg.eigh',
+    'NO_COMPILE_CACHE': 'the XLA compile cache; the port compiles no '
+                        'graph ahead of time',
+    'NO_X64': "JAX's float32 mode; the port computes in float64 and "
+              'complex128',
+    'OZAKI_CMUL': 'the multiplication count of split (re, im) complex '
+                  'products; the port multiplies complex128 tensors',
+    'OZAKI_DWORD': "the XLA form of the digit pipeline beside the Pallas "
+                   'kernel; the port has the CUDA kernel and its plain '
+                   'version',
+    'OZAKI_FACTORED': 'turns off the factored Ozaki operand on the TPU, '
+                      'which then assembles D in emulated float64; the '
+                      "port's 'native' route is the complex128 product",
+    'OZAKI_MXU': 'the matrix-unit operand type (int8 or bf16) of the TPU; '
+                 'the port has the int8 route',
+    'OZAKI_OPERANDS': 'the dtype of the Ozaki operand P on the TPU; the '
+                      'port splits P into two float32 words',
+    'OZAKI_RECOMB': "the bf16 and f64 recombination variants; the port "
+                    "has the double-single ('ds') recombination",
+    'SO_FACTORED': 'always on: the port computes the second-order term '
+                   'from the separable tables of the K2 lattice and '
+                   'builds the lattice only to cache it',
+    'SO_DTYPE': 'float32 second-order contractions on the TPU; the port '
+                'computes the second order in complex128',
+    'SO_LATTICE': 'the double-single float32 K2 lattice of the TPU; the '
+                  "port's lattice is complex128",
+    'TRANSFORM_DTYPE': 'float32 basis transforms on the TPU; the port '
+                       'transforms in complex128',
+    'TRANSFORM_MXU': 'basis transforms as Ozaki products on the TPU '
+                     "matrix unit; the port's are complex128 products",
 }
 
 
@@ -157,3 +207,21 @@ def test_pulse_sequence_reexports_the_composition_functions():
         assert getattr(fft, name) is getattr(sequencing, name)
     assert 'spectroscopy' in fft.__all__ and hasattr(fft, 'spectroscopy')
     assert 'exchange' in fft.models.__all__
+
+
+def test_settings_are_ported_or_listed():
+    """Every FF_TPU_* setting the JAX package's sources read or name has
+    its counterpart in the port or a reason it is left out, and both
+    lists are exact: an entry for a setting the JAX package does not have
+    fails, and each counterpart exists in the port."""
+    found = set()
+    for path in Path(ff.__file__).parent.rglob('*.py'):
+        found.update(re.findall(r'FF_TPU_([A-Z0-9_]+)', path.read_text()))
+    assert not set(PORTED_SETTINGS) & set(OMITTED_SETTINGS)
+    assert found == set(PORTED_SETTINGS) | set(OMITTED_SETTINGS), (
+        sorted(found - set(PORTED_SETTINGS) - set(OMITTED_SETTINGS)),
+        sorted(set(PORTED_SETTINGS) | set(OMITTED_SETTINGS) - found))
+    for names in PORTED_SETTINGS.values():
+        for name in names:
+            module, attr = name.rsplit('.', 1)
+            assert hasattr(_import(fft, module), attr), name

@@ -274,8 +274,8 @@ def test_diag_shifts_match_integrated_f2(kind):
         s, omega, np.arange(3), 'total', 'generalized', filter_function=f2),
         omega)
     _close(got.real, want)
-    assert numeric._lattice_chunk(p.eigvals, 30, 0) == len(p.eigvals)
-    assert numeric._lattice_chunk(p.eigvals, 30, 0, budget_bytes=1) == 1
+    assert numeric._factored_chunk(p.eigvals, 30, 0) == len(p.eigvals)
+    assert numeric._factored_chunk(p.eigvals, 30, 0, budget_bytes=1) == 1
     chunked = numeric._second_order_diag_shifts(
         p.eigvals, n_t, b_t, step, padded, omega, _t(p.dt), weights,
         budget_bytes=1)
