@@ -70,9 +70,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       (``qft.qft_pulse_arrays(3)``: d = 8, 10 segments, 12 + 12
       operators, 64-element GGM basis), 1000 frequencies in
       geomspace(1e-2, 1e2), S = 1e-4/omega, batch 8 with rows 1-7 scaled
-      as the flagship batch: the batched second-order ETM, finite.  64
-      elements is the widest basis whose dense trace combos the
-      functional ETM holds (at 256 they are 34 GB).  (iii) The
+      as the flagship batch: the batched second-order ETM, finite (64
+      elements: the widest basis contracted with the dense trace combos;
+      above it the ETM contracts through the basis).  (iii) The
       flagship's frequency shifts (row 0 of phase 4's inputs, d = 16,
       1000 frequencies): ``numeric._second_order_diag_shifts`` on the
       step terms that ``functional._etm_core`` builds, finite; the
@@ -80,8 +80,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       frequency-reduced term of the shifts from the tables against
       weights @ the K2 lattice (``reduced_term``), within 1e-13 (i) and
       1e-12 (ii, iii) of its largest entry.  Neither package runs the
-      flagship's whole second-order ETM: F^(2) would be (18, 18, 256,
-      256, 1000) complex128, about 340 GB, and the trace combos 34 GB.
+      flagship's second-order ETM under a cross-spectrum: F^(2) would be
+      (18, 18, 256, 256, 1000) complex128, about 340 GB.
+   d. Autograd through the flagship's first-order
+      ``functional.error_transfer_matrix`` (row 0, 1000 frequencies,
+      S = 1e-4/omega, the 256-element basis contracted through the
+      basis): the directional derivative of its sum weighted by
+      ``default_rng(14)`` normals, along a direction from the same
+      generator in c_coeffs, within 1e-6 relative of central differences
+      at h = 1e-6; the flagship is degenerate on segments 0-2, and the
+      derivative without the degenerate-eigenspace term is printed
+      beside it.  The second-order call with a gradient must raise
+      ValueError.  No kernel launch (the ETM contracts each segment in
+      complex128); times forward plus backward, with the peak memory.
 8. gradients.
    a. ``torch.autograd.grad`` of the summed ``functional.
       batched_infidelity`` of phase 4's rows 0-3 (chunks of 2, 1000
@@ -209,7 +220,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       ``__graft_entry__.dryrun_multichip``'s problem (d = 2, 3 segments,
       batch 4, 4 frequencies) on a 2 x 1 mesh: ``grape_step``'s loss
       finite and falling over two steps, ``sharded_batched_infidelity``
-      finite.  Both ranks must exit 0 within ``RANK_DEADLINE``.
+      finite.  Autograd on both meshes: the sum of each rank's rows of
+      ``sharded_batched_infidelity`` of rows 0-3 (8a's loss),
+      ``.to_local()`` and ``.backward()``: the rank's rows of the
+      c_coeffs gradient within 1e-10 relative of phase 8a's, zero
+      elsewhere, with the forward collectives of the call without
+      gradients and one SUM over 'omega' in the backward pass on 1 x 2,
+      none on 2 x 1, and no kernel launch in the backward pass.  Both
+      ranks must exit 0 within ``RANK_DEADLINE``
+      (``parallel.ranks.run_ranks``).
    c. GRAPE on the one-rank mesh: the dryrun problem for one rank (batch
       2), loss finite and falling; on rows 0-3 of phase 4's batch
       (chunks of 2, default route) ``grape_step``'s gradient within
@@ -217,21 +236,48 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       ``optimize_pulse`` for 5 steps, finite, with its launches; times a
       GRAPE step in ms per pulse, with its peak device memory.
 
-After phases 3, 5, 6, 7a, 7b, 7c, 8, 9, 10 and 11 a line ``phase time:``
+12. the entry points (``filter_functions_tpu_torch.entry``) and the
+    escalation.
+   a. ``entry()`` on the card: ``fn(*args)`` is (18,) float64, within
+      1e-12 relative of phase 4's Ozaki row 0 and 1e-10 of its native
+      row 0, with exactly one kernel launch per call; times 5 calls,
+      median in ms, with the peak memory.
+   b. ``entry.dryrun_multichip(2)``'s rank function,
+      ``entry._dryrun_rank(2, 'cuda')``, in phase 11b's two ranks (a spawn
+      of its own would add 18-32 s to the run): each rank's mesh and
+      coordinate, its loss and block of infidelities within 1e-12
+      relative of 11b's dryrun on the same 2 x 1 mesh, no kernel launch
+      (K = 12 is not deep), counted in the rank; prints its seconds.
+   c. The CPMG-300 train (tests/test_torch_accuracy_policy.py: d = 2, 601
+      segments, K = 2404, 100 frequencies in geomspace(1e-4, 1e2),
+      S = 1e-3/omega^2) on the default route, through
+      ``batched_infidelity`` (a batch of the train and a 1e-7
+      perturbation of it) and through ``get_filter_function``: one
+      kernel launch each in the fast 'stat' pass, a statistic above
+      ``config.ESCALATION_TOL``, the escalated results within 1e-12
+      relative of the card's native route (elementwise for the filter
+      function) and of the CPU's (relative to the largest entry: at the
+      refocusing points two summation orders differ elementwise by ~eps
+      1e11; the card's native against the CPU's native, elementwise, is
+      printed as the witness), the unescalated distance beside them;
+      times the escalated, unescalated and native batched calls in 21
+      turns (median and quartiles) and the cold object call.
+
+After phases 3, 5, 6, 7a, 7b, 7c, 7d, 8, 9, 10, 11 (with 12b), 12a and 12c a
+line ``phase time:``
 gives the host-clock seconds since the one before.  Before the last line
 come the card's label and the kernels' JSON record, in that order; the
 last line is
 ``{"ok": true, "device": {...}}``.
 """
 import copy
+import functools
 import json
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
-import traceback
-from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -239,11 +285,12 @@ import torch
 import torch.distributed
 
 import filter_functions_tpu_torch as fft
-from filter_functions_tpu_torch import (analytic, basis, config, functional,
-                                        numeric, parallel, spectroscopy,
-                                        superoperator, util)
+from filter_functions_tpu_torch import (analytic, basis, config, convert,
+                                        entry, functional, numeric, parallel,
+                                        spectroscopy, superoperator, util)
 from filter_functions_tpu_torch.models import dd, exchange, qft, rb
 from filter_functions_tpu_torch.ops import _build, dword
+from filter_functions_tpu_torch.parallel import ranks as parallel_ranks
 from filter_functions_tpu_torch.parallel import sharding
 
 N_OMEGA = 1000
@@ -298,6 +345,12 @@ WIDE_LATTICE_PARITY = 1e-12
 LATTICE_TEMPS = 6
 #: The 3-qubit QFT batch of 7c(ii): (qubits, frequencies, batch).
 QFT3_SHAPE = (3, 1000, 8)
+#: 7d: the step of the central differences along a seeded direction in
+#: the flagship's control coefficients, and the bound on autograd's
+#: directional derivative of the weighted first-order ETM against them,
+#: relative (a CPU run of the same inputs: 7.3e-8 apart).
+ETM_GRAD_STEP = 1e-6
+ETM_GRAD_PARITY = 1e-6
 #: Pulses and chunk size of the flagship autograd (8a): every chunk's
 #: graph stays alive until the backward pass.
 GRAD_BATCH = 4
@@ -374,11 +427,22 @@ SHARD_FF_PARITY = 1e-13
 RANK_DEADLINE = 600
 #: grape_step's gradient against phase 8a's autograd gradient, relative.
 GRAPE_PARITY = 1e-10
+#: A rank's rows of the sharded infidelities' autograd gradient (11b)
+#: against phase 8a's, relative: the frequency integral and its backward
+#: summed in another order.
+SHARD_GRAD_PARITY = 1e-10
 #: The learning rate of the gradient probe (11c): a power of two, so
 #: that (c - new) / lr gives the gradient back to its own rounding.
 GRAPE_PROBE_LR = 2.0**20
 #: Steps of optimize_pulse on the flagship rows (11c).
 OPTIMIZE_STEPS = 5
+#: 12c: the escalated CPMG-300 results against the native route's on the
+#: card and on the CPU, relative (the rerun is the native route).
+ESCALATED_PARITY = 1e-12
+#: 12c: rounds of the escalated, unescalated and native calls timed in
+#: turns: the escalation's cost (the native rerun) is smaller than the
+#: spread of one call's host time between runs (PERF.md, phase 12c).
+ESCALATION_ROUNDS = 21
 
 
 def _card_label() -> str:
@@ -412,6 +476,22 @@ def _median_ms(fn, runs: int) -> float:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return statistics.median(times) * 1e3
+
+
+def _in_turns_ms(calls: dict, rounds: int) -> dict:
+    """(median, first and third quartile) of the host time of each of
+    *calls* in ms, each ending in a synchronization, run in turns (one of
+    each per round) so that the host's drift reaches all of them alike."""
+    times = {name: [] for name in calls}
+    for _ in range(rounds):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: (statistics.median(t), *statistics.quantiles(t, n=4)[::2])
+            for name, t in times.items()}
 
 
 def dword_bound_ms(K, J, C, n_d, batch) -> float:
@@ -578,6 +658,8 @@ def main() -> int:
     lap('7b')
     table_launches = second_order_tables(device, card)
     lap('7c')
+    etm_grad_launches = etm_gradient(device, card)
+    lap('7d')
 
     # 8. gradients
     grad_launches, grad_8a = autograd_flagship(device, card, batched, omega,
@@ -611,11 +693,18 @@ def main() -> int:
     mesh, shard_launches = sharded_flagship(device, card, batched, omega,
                                             spectrum, infid)
     concat_launches.update(shard_launches)
-    concat_launches.update(two_ranks(device, card, batched, omega, infid))
+    concat_launches.update(two_ranks(device, card, batched, omega, infid,
+                                     grad_8a))
     concat_launches.update(grape_flagship(device, card, mesh, batched, omega,
                                           spectrum, grad_8a))
     torch.distributed.destroy_process_group()
     lap('11')
+
+    # 12. the entry points and the escalation
+    entry_launches = entry_flagship(device, card, infid[0], native[0])
+    lap('12a')
+    concat_launches.update(cpmg_pathology(device, card))
+    lap('12c')
 
     print(card)
     print(json.dumps({'kernels': [{
@@ -623,13 +712,17 @@ def main() -> int:
         'source': 'filter_functions_tpu_torch/csrc/dword_digits.cu',
         'replaces': 'filter_functions_tpu/ops/dword_pallas.py:198',
         'launches': launches + object_launches + etm_launches
-        + grad_launches + sum(concat_launches.values()),
+        + grad_launches + etm_grad_launches + entry_launches
+        + sum(concat_launches.values()),
         'launches_by_path': {
             **concat_launches,
             'functional.batched_infidelity': launches,
             'numeric.infidelity (PulseSequence)': object_launches,
             'numeric.error_transfer_matrix (PulseSequence)': etm_launches,
-            'functional.batched_infidelity (autograd)': grad_launches},
+            'functional.batched_infidelity (autograd)': grad_launches,
+            'functional.error_transfer_matrix (autograd, 7d)':
+            etm_grad_launches,
+            'entry.entry (one call)': entry_launches},
         'max_abs_err': kernel_err, 'ms': kernel_ms, 'plain_ms': plain_ms,
         'bound_ms': bound_ms, 'bound_by': 'bytes', 'bound': 'memory',
         'pct_of_bound': 100 * bound_ms / kernel_ms, 'library_ms': None,
@@ -1022,6 +1115,71 @@ def second_order_tables(device, card) -> int:
     print(f'7c: dword_digits launches {launches}')
     if launches:
         raise AssertionError('7c launched the kernel')
+    return launches
+
+
+def etm_gradient(device, card) -> int:
+    """Phase 7d: autograd through a weighted sum of the flagship's
+    first-order functional ETM (row 0, 1000 frequencies) against central
+    differences, and the second-order call with a gradient, which must
+    raise ValueError (the flagship is degenerate on segments 0-2);
+    returns the kernel's launches in the autograd call."""
+    p = qft.qft_pulse_arrays(4, device=device)
+    basis = qft.qft_pulse_sequence(4, device=device).basis
+    omega, spectrum = _omega_spectrum(device)
+    rng = np.random.default_rng(14)
+    weights = torch.from_numpy(rng.standard_normal((256, 256))).to(device)
+    direction = torch.from_numpy(rng.standard_normal(
+        tuple(p.c_coeffs.shape))).to(device)
+
+    def loss(c, second_order=False):
+        return (functional.error_transfer_matrix(
+            p._replace(c_coeffs=c), spectrum, omega, basis, second_order)
+            * weights).sum()
+
+    def derivative():
+        c = p.c_coeffs.clone().requires_grad_(True)
+        grad, = torch.autograd.grad(loss(c), c)
+        return (grad * direction).sum().item()
+
+    torch.cuda.reset_peak_memory_stats(device)
+    dword.launches = 0
+    got = derivative()
+    launches = dword.launches
+    peak = torch.cuda.max_memory_allocated(device)
+    h = ETM_GRAD_STEP
+    with torch.no_grad():
+        central = ((loss(p.c_coeffs + h * direction)
+                    - loss(p.c_coeffs - h * direction)) / (2 * h)).item()
+    err = abs(got - central) / abs(central)
+    # the parent's functional ETM dropped the degenerate-eigenspace term
+    degenerate_term = numeric._degenerate_control_matrix
+    numeric._degenerate_control_matrix = lambda *args: None
+    try:
+        without = abs(derivative() - central) / abs(central)
+    finally:
+        numeric._degenerate_control_matrix = degenerate_term
+    print(f'etm gradient: functional.error_transfer_matrix of the flagship, '
+          f'first order, {N_OMEGA} frequencies: autograd directional '
+          f'derivative {got:.12e}, central differences (h = {h}) '
+          f'{central:.12e}: relative {err:.3e} (bound {ETM_GRAD_PARITY}); '
+          f'without the degenerate-eigenspace term {without:.3e}; '
+          f'dword_digits launches {launches}')
+    _check('7d: the ETM gradient against central differences', err,
+           ETM_GRAD_PARITY)
+    c = p.c_coeffs.clone().requires_grad_(True)
+    try:
+        loss(c, second_order=True)
+    except ValueError as exc:
+        print(f'etm gradient: second order with requires_grad raises '
+              f'ValueError: {exc}')
+    else:
+        raise AssertionError('7d: the second-order ETM with a gradient at '
+                             'the degenerate flagship did not raise')
+    ms = _median_ms(derivative, N_TIMED)
+    print(f'timing: etm gradient {ms:.4f} ms per forward plus backward '
+          f'(median of {N_TIMED}); peak device memory {peak / 2**30:.2f} '
+          f'GiB [{card}]')
     return launches
 
 
@@ -1945,24 +2103,13 @@ def sharded_flagship(device, card, batched, omega, spectrum, infid):
 
 
 def dryrun_inputs(n_ranks, device):
-    """__graft_entry__.dryrun_multichip's problem for *n_ranks* ranks:
-    (mesh batch axis, PulseArrays, omega, spectrum)."""
-    batch_axis = 2 if n_ranks % 2 == 0 and n_ranks > 1 else 1
-    rng = np.random.default_rng(0)
-    d, n_dt, n_ctrl, n_nops = 2, 3, 2, 1
-    batch = batch_axis * 2
-    n_omega = (n_ranks // batch_axis) * 4
-    X, Y, Z = (torch.from_numpy(m / 2) for m in fft.util.paulis[1:])
-    p = functional.PulseArrays(
-        torch.stack([X, Y]).to(device),
-        torch.from_numpy(rng.standard_normal((batch, n_ctrl, n_dt))).to(
-            device),
-        Z[None].to(device),
-        torch.ones(batch, n_nops, n_dt, dtype=torch.float64, device=device),
-        torch.ones(batch, n_dt, dtype=torch.float64, device=device),
-        fft.Basis.ggm(d).tensor(device))
-    omega = torch.from_numpy(np.linspace(0.5, 10, n_omega)).to(device)
-    return batch_axis, p, omega, 1e-2 / omega
+    """The dry run's problem for *n_ranks* ranks (``entry.dryrun_problem``,
+    __graft_entry__.dryrun_multichip's): (mesh batch axis, PulseArrays,
+    omega, spectrum) on *device*."""
+    batch_axis, arrays, omega, spectrum = entry.dryrun_problem(n_ranks)
+    return (batch_axis, convert.pulse_arrays_from_numpy(arrays, device=device),
+            torch.from_numpy(omega).to(device),
+            torch.from_numpy(spectrum).to(device))
 
 
 def dryrun_grape(mesh, n_ranks, device, cpu_mesh=None):
@@ -1994,48 +2141,57 @@ def _check_dryrun(name, loss0, loss1, infids):
         raise AssertionError(f'{name}: the loss is not finite and falling')
 
 
-def _rank_11b(rank, tmp):
-    """One rank of phase 11b: writes its results, collectives and kernel
-    launches to *tmp*."""
-    try:
-        torch.distributed.init_process_group(
-            'gloo', init_method=f'file://{tmp}/group', rank=rank,
-            world_size=2, timeout=timedelta(seconds=RANK_DEADLINE // 2))
-        device = torch.device('cuda', 0)
-        torch.cuda.set_device(device)
-        batched, omega, spectrum = flagship_inputs(device)
-        p = _first(batched, GRAD_BATCH)
-        one = p._replace(c_coeffs=p.c_coeffs[0], n_coeffs=p.n_coeffs[0],
-                         dt=p.dt[0])
-        out, meshes = {}, {}
-        for shape in ((1, 2), (2, 1)):
-            mesh = parallel.make_mesh(2, batch=shape[0], device=device)
-            cpu_mesh = parallel.make_mesh(2, batch=shape[0], device='cpu')
-            meshes[shape] = mesh, cpu_mesh
-            calls = {'batched': lambda: parallel.sharded_batched_infidelity(
-                         p, spectrum, omega, mesh, chunk_size=CHUNK),
-                     'ff': lambda: parallel.sharded_filter_function(
-                         one, omega, mesh)}
-            for name, call in calls.items():
-                sharding.collectives = []
-                dword.launches = 0
-                result = call()
-                torch.cuda.synchronize()
-                out[shape, name] = (_full(result, cpu_mesh),
-                                    list(sharding.collectives),
-                                    dword.launches)
-        mesh, cpu_mesh = meshes[2, 1]
-        out['dryrun'] = dryrun_grape(mesh, 2, device, cpu_mesh)
-        torch.save(out, f'{tmp}/rank{rank}.pt')
-    except BaseException:
-        Path(tmp, f'rank{rank}.err').write_text(traceback.format_exc())
-        raise
-    finally:
-        if torch.distributed.is_initialized():
-            torch.distributed.destroy_process_group()
+def _rank_11b():
+    """One rank of phase 11b: its results, collectives and kernel
+    launches by call."""
+    device = torch.device('cuda', 0)
+    torch.cuda.set_device(device)
+    batched, omega, spectrum = flagship_inputs(device)
+    p = _first(batched, GRAD_BATCH)
+    one = p._replace(c_coeffs=p.c_coeffs[0], n_coeffs=p.n_coeffs[0],
+                     dt=p.dt[0])
+    out, meshes = {}, {}
+    for shape in ((1, 2), (2, 1)):
+        mesh = parallel.make_mesh(2, batch=shape[0], device=device)
+        cpu_mesh = parallel.make_mesh(2, batch=shape[0], device='cpu')
+        meshes[shape] = mesh, cpu_mesh
+        calls = {'batched': lambda: parallel.sharded_batched_infidelity(
+                     p, spectrum, omega, mesh, chunk_size=CHUNK),
+                 'ff': lambda: parallel.sharded_filter_function(
+                     one, omega, mesh)}
+        for name, call in calls.items():
+            sharding.collectives = []
+            dword.launches = 0
+            result = call()
+            torch.cuda.synchronize()
+            out[shape, name] = (_full(result, cpu_mesh),
+                                list(sharding.collectives),
+                                dword.launches)
+        # autograd: the sum of the rank's rows (8a's loss), backpropagated
+        c = p.c_coeffs.detach().clone().requires_grad_(True)
+        sharding.collectives = []
+        dword.launches = 0
+        result = parallel.sharded_batched_infidelity(
+            p._replace(c_coeffs=c), spectrum, omega, mesh, chunk_size=CHUNK)
+        forward = (list(sharding.collectives), dword.launches)
+        sharding.collectives = []
+        dword.launches = 0
+        result.to_local().sum().backward()
+        torch.cuda.synchronize()
+        out[shape, 'backward'] = (c.grad.cpu(), mesh.get_coordinate()[0],
+                                  forward, (list(sharding.collectives),
+                                            dword.launches))
+    mesh, cpu_mesh = meshes[2, 1]
+    out['dryrun'] = dryrun_grape(mesh, 2, device, cpu_mesh)
+    # 12b: the rank function of entry.dryrun_multichip(2) in this group
+    t0 = time.perf_counter()
+    out['entry dryrun'] = entry._dryrun_rank(2, 'cuda')
+    torch.cuda.synchronize()
+    out['entry dryrun seconds'] = time.perf_counter() - t0
+    return out
 
 
-def two_ranks(device, card, batched, omega, infid) -> dict:
+def two_ranks(device, card, batched, omega, infid, grad_8a) -> dict:
     """Phase 11b: two spawned ranks on cuda:0; returns the kernel's
     launches of both ranks by path."""
     print('two ranks: NCCL refuses two ranks on one card, so both ranks '
@@ -2043,29 +2199,9 @@ def two_ranks(device, card, batched, omega, infid) -> dict:
           'tensors but its all-gather of them crashes, so each rank gathers '
           'a result with full_tensor() on a CPU mesh of the same ranks')
     torch.cuda.empty_cache()
-    ctx = torch.multiprocessing.get_context('spawn')
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=_rank_11b, args=(rank, tmp))
-                 for rank in range(2)]
-        for proc in procs:
-            proc.start()
-        end = time.monotonic() + RANK_DEADLINE
-        for proc in procs:
-            proc.join(max(0.0, end - time.monotonic()))
-        for proc in procs:
-            if proc.is_alive():
-                proc.kill()
-            proc.join()
-        errors = [Path(tmp, f'rank{r}.err').read_text() for r in range(2)
-                  if Path(tmp, f'rank{r}.err').exists()]
-        codes = [proc.exitcode for proc in procs]
-        if errors or codes != [0, 0]:
-            raise AssertionError(f'phase 11b: rank exit codes {codes} '
-                                 f'(deadline {RANK_DEADLINE} s)\n'
-                                 + '\n'.join(errors))
-        ranks = [torch.load(f'{tmp}/rank{r}.pt', weights_only=False)
-                 for r in range(2)]
+    ranks = parallel_ranks.run_ranks(_rank_11b, 2, backend='gloo',
+                                     deadline=RANK_DEADLINE)
     print(f'two ranks: both exited 0 after {time.perf_counter() - t0:.1f} s '
           f'(spawn and start-up included)')
 
@@ -2104,6 +2240,7 @@ def two_ranks(device, card, batched, omega, infid) -> dict:
                 else 'parallel.sharded_filter_function')
         launches[f'{path} (two ranks, {shape[0]} x {shape[1]})'] = sum(
             g[2] for g in got)
+    dry_total = 0
     for rank, r in enumerate(ranks):
         loss0, loss1, infids, reduced, dry_launches = r['dryrun']
         _check_dryrun(f'two ranks dryrun 2 x 1, rank {rank}', loss0, loss1,
@@ -2111,9 +2248,45 @@ def two_ranks(device, card, batched, omega, infid) -> dict:
         if reduced != [('max', None), ('sum', 'batch')] or dry_launches:
             raise AssertionError(f'dryrun on two ranks: collectives '
                                  f'{reduced}, launches {dry_launches}')
+        dry_total += dry_launches
     print(f'two ranks dryrun: the collectives of a grape_step {reduced} '
           f'[{card}]')
-    launches['parallel.grape_step (dryrun, two ranks)'] = 0
+    launches['parallel.grape_step (dryrun, two ranks)'] = dry_total
+    launches['entry.dryrun_multichip (rank function, two ranks, K = 12)'] = \
+        entry_dryrun(card, ranks)
+    backward_reduced = {(1, 2): [('sum', 'omega')], (2, 1): []}
+    forward_reduced = {(1, 2): [('max', None), ('sum', 'omega')],
+                       (2, 1): [('max', None)]}
+    for shape in ((1, 2), (2, 1)):
+        rows = GRAD_BATCH // shape[0]
+        errs, for_launches = [], 0
+        for r in ranks:
+            grad, b, (forward, f_launches), (backward, b_launches) = \
+                r[shape, 'backward']
+            block = slice(b * rows, (b + 1) * rows)
+            want = grad_8a[block].cpu()
+            errs.append(_rel(grad[block], want))
+            rest = torch.ones(GRAD_BATCH, dtype=torch.bool)
+            rest[block] = False
+            if grad[rest].any():
+                raise AssertionError(f'11b {shape}: a gradient outside the '
+                                     'rank\'s rows')
+            if (forward != forward_reduced[shape] or b_launches
+                    or backward != backward_reduced[shape]):
+                raise AssertionError(
+                    f'11b {shape} autograd: collectives {forward} forward, '
+                    f'{backward} backward, {b_launches} backward launches')
+            for_launches += f_launches
+        print(f'two ranks {shape[0]} x {shape[1]} autograd: each rank\'s rows '
+              f'of c_coeffs.grad against phase 8a {[f"{e:.3e}" for e in errs]}'
+              f' relative (bound {SHARD_GRAD_PARITY}); backward collectives '
+              f'{backward_reduced[shape]}, dword_digits launches '
+              f'{for_launches} forward (both ranks), 0 backward')
+        for err in errs:
+            _check(f'11b {shape}: the sharded gradient against 8a', err,
+                   SHARD_GRAD_PARITY)
+        launches[f'parallel.sharded_batched_infidelity (two ranks, '
+                 f'{shape[0]} x {shape[1]}, autograd)'] = for_launches
     return launches
 
 
@@ -2174,6 +2347,186 @@ def grape_flagship(device, card, mesh, batched, omega, spectrum,
             'parallel.grape_step (flagship rows 0-3)': launches,
             f'parallel.optimize_pulse (flagship rows 0-3, {OPTIMIZE_STEPS} '
             'steps)': opt_launches}
+
+
+def entry_flagship(device, card, ozaki_row0, native_row0) -> int:
+    """Phase 12a: the port's ``entry()`` on the card; returns the kernel's
+    launches in one call."""
+    fn, args = entry.entry()
+    torch.cuda.reset_peak_memory_stats(device)
+    dword.launches = 0
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launches = dword.launches
+    peak = torch.cuda.max_memory_allocated(device)
+    if (out.shape != (18,) or out.dtype != torch.float64
+            or out.device != device or not torch.isfinite(out).all()):
+        raise AssertionError(f'entry(): bad result {tuple(out.shape)} '
+                             f'{out.dtype} on {out.device}')
+    to_ozaki = ((out - ozaki_row0).abs() / ozaki_row0.abs()).max().item()
+    to_native = (out - native_row0).abs().max().item()
+    print(f'entry: fn(*args) of entry() on {out.device}, route '
+          f'{config.contraction_mode(out.device)!r}: against phase 4 Ozaki '
+          f'row 0 {to_ozaki:.3e} relative (bound {OBJECT_PARITY}), native '
+          f'row 0 max |diff| {to_native:.3e} (bound {PARITY}); dword_digits '
+          f'launches {launches}')
+    _check('12a: entry() against phase 4 Ozaki row 0', to_ozaki,
+           OBJECT_PARITY)
+    _check('12a: entry() against phase 4 native row 0', to_native, PARITY)
+    dword.launches = 0
+    ms = _median_ms(lambda: fn(*args), N_TIMED)
+    if launches != 1 or dword.launches != N_TIMED:
+        raise AssertionError(f'entry(): {launches} launches in one call, '
+                             f'{dword.launches} in {N_TIMED}: not 1 a call')
+    print(f'timing: entry() step {ms:.4f} ms per call (median of '
+          f'{N_TIMED}); peak device memory {peak / 2**30:.3f} GiB [{card}]')
+    return launches
+
+
+def entry_dryrun(card, ranks) -> int:
+    """Phase 12b: the ranks' results of ``entry._dryrun_rank(2, 'cuda')``,
+    the rank function of ``entry.dryrun_multichip(2)``, run in phase 11b's
+    two ranks; returns their kernel launches (K = 12 is not deep: 0)."""
+    errs = []
+    launches = [r['entry dryrun']['launches'] for r in ranks]
+    for rank, r in enumerate(ranks):
+        got = r['entry dryrun']
+        loss0, _, infids, _, _ = r['dryrun']
+        rows = infids[2 * rank:2 * rank + 2]
+        errs.append(max(abs(got['loss'] - loss0) / abs(loss0),
+                        _rel(torch.from_numpy(got['infidelity']), rows)))
+        if got['mesh'] != (2, 1) or got['coordinate'] != (rank, 0):
+            raise AssertionError(f'12b rank {rank}: mesh {got["mesh"]}, '
+                                 f'coordinate {got["coordinate"]}')
+        if got['launches']:
+            raise AssertionError(f'12b rank {rank}: {got["launches"]} '
+                                 'kernel launches on the K = 12 problem')
+    print(f'dryrun card: entry._dryrun_rank(2, \'cuda\') in the two ranks of '
+          f'11b on cuda:0 over gloo (the spawn of 11b), '
+          f'{[round(r["entry dryrun seconds"], 3) for r in ranks]} s per rank;'
+          f' loss and infidelities against 11b\'s dryrun on the same mesh '
+          f'{[f"{e:.3e}" for e in errs]} relative (bound {SHARD_PARITY}); '
+          f'dword_digits launches {launches} [{card}]')
+    for err in errs:
+        _check('12b: the entry dry run against 11b\'s', err, SHARD_PARITY)
+    return sum(launches)
+
+
+def _cpmg_300(device):
+    """The CPMG-300 train of tests/test_torch_accuracy_policy.py on
+    *device*: (PulseSequence, a batch of it and of its 1e-7 perturbation,
+    omega, spectrum)."""
+    pulse = dd.dd_pulse(300, tau=10, tau_pi=1e-2, device=device)
+    p = functional.make_pulse_arrays(pulse)
+    pb = p._replace(c_coeffs=torch.stack([p.c_coeffs,
+                                          p.c_coeffs * 1.0000001]),
+                    n_coeffs=p.n_coeffs.expand(2, -1, -1),
+                    dt=p.dt.expand(2, -1))
+    omega = torch.from_numpy(np.geomspace(1e-4, 1e2, 100)).to(device)
+    return pulse, pb, omega, 1e-3 / omega**2
+
+
+def _elementwise(f, want):
+    """max |f - want| / |want| elementwise, with a floor of 1e-30 of the
+    largest |want|."""
+    floor = want.abs().max() * 1e-30
+    return ((f - want).abs() / want.abs().clamp_min(floor)).max().item()
+
+
+def cpmg_pathology(device, card) -> dict:
+    """Phase 12c: the CPMG-300 train on the default route, which must
+    escalate, through ``batched_infidelity`` and the object path; returns
+    the kernel's launches by path."""
+    pulse, pb, omega, spectrum = _cpmg_300(device)
+    _, pb_cpu, omega_cpu, spectrum_cpu = _cpmg_300('cpu')
+    route = config.contraction_mode(device)
+    dword.launches = 0
+    got = functional.batched_infidelity(pb, spectrum, omega)
+    torch.cuda.synchronize()
+    launches = dword.launches
+    _, ratios = functional._batched_stat(pb, spectrum, omega, None, 'stat',
+                                         route)
+    stat = ratios.max().item()
+    fast = functional.batched_infidelity(pb, spectrum, omega,
+                                         escalation_tol=0)
+    native = functional.batched_infidelity(pb, spectrum, omega,
+                                           contract='native')
+    cpu = functional.batched_infidelity(pb_cpu, spectrum_cpu, omega_cpu,
+                                        contract='native')
+    scale = native.abs().max()
+    to_native = ((got - native).abs().max() / scale).item()
+    to_cpu = ((got.cpu() - cpu).abs().max() / cpu.abs().max()).item()
+    fast_off = ((fast - native).abs().max() / scale).item()
+    print(f'cpmg-300 batched: route {route!r}, K = '
+          f'{pulse.d**2 * len(pulse.dt)}, statistic {stat:.6e} (threshold '
+          f'{config.ESCALATION_TOL}), dword_digits launches {launches} '
+          f'(the stat pass); escalated against the card\'s native '
+          f'{to_native:.3e}, the CPU\'s {to_cpu:.3e} (bound '
+          f'{ESCALATED_PARITY}); unescalated {fast_off:.3e} off native, '
+          f'relative to the largest infidelity')
+    if not (stat > config.ESCALATION_TOL and launches == 1):
+        raise AssertionError('12c: the CPMG-300 batch did not launch the '
+                             'kernel once and escalate')
+    _check('12c: escalated batch against native', to_native,
+           ESCALATED_PARITY)
+    _check('12c: escalated batch against the CPU', to_cpu, ESCALATED_PARITY)
+    calls = {name: functools.partial(functional.batched_infidelity, pb,
+                                     spectrum, omega, **kw)
+             for name, kw in (('escalated (default)', {}),
+                              ('unescalated', dict(escalation_tol=0)),
+                              ('native', dict(contract='native')))}
+    for name, (median, q1, q3) in _in_turns_ms(calls,
+                                               ESCALATION_ROUNDS).items():
+        print(f'timing: cpmg-300 batched_infidelity {name} {median:.4f} ms '
+              f'per call of 2 (median of {ESCALATION_ROUNDS} in turns with '
+              f'the others; quartiles {q1:.4f}, {q3:.4f}) [{card}]')
+
+    dword.launches = 0
+    f_got = pulse.get_filter_function(omega).real
+    torch.cuda.synchronize()
+    object_launches = dword.launches
+    f_native = numeric.calculate_filter_function(
+        _native_control_matrix(pulse, omega), 'fidelity').real
+    f_cpu = dd.dd_pulse(300, tau=10, tau_pi=1e-2, device='cpu') \
+        .get_filter_function(omega_cpu).real
+    tol = config.ESCALATION_TOL
+    config.ESCALATION_TOL = 0
+    try:
+        pulse.cleanup('all')
+        f_fast = pulse.get_filter_function(omega).real
+    finally:
+        config.ESCALATION_TOL = tol
+    obj_native = _elementwise(f_got, f_native)
+    # the card against the CPU relative to the largest entry: at the
+    # train's refocusing points |F| is ~1e-11 of its largest entry, so
+    # two summation orders differ there elementwise by ~eps 1e11
+    obj_cpu = ((f_got.cpu() - f_cpu).abs().max() / f_cpu.abs().max()).item()
+    obj_fast = _elementwise(f_fast, f_native)
+    print(f'cpmg-300 object path: get_filter_function, dword_digits '
+          f'launches {object_launches}; escalated against the card\'s '
+          f'native {obj_native:.3e} elementwise relative, the CPU\'s '
+          f'{obj_cpu:.3e} relative to the largest entry '
+          f'({_elementwise(f_got.cpu(), f_cpu):.3e} elementwise) (bound '
+          f'{ESCALATED_PARITY}); the card\'s native against the CPU\'s '
+          f'native, no escalation, {_elementwise(f_native.cpu(), f_cpu):.3e} '
+          f'elementwise; unescalated {obj_fast:.3e} elementwise')
+    if object_launches != 1 or not obj_fast > ESCALATED_PARITY:
+        raise AssertionError('12c: the object path did not launch the '
+                             'kernel once, or its fast pass is not off')
+    _check('12c: escalated filter function against native', obj_native,
+           ESCALATED_PARITY)
+    _check('12c: escalated filter function against the CPU', obj_cpu,
+           ESCALATED_PARITY)
+
+    def cold():
+        pulse.cleanup('all')
+        pulse.get_filter_function(omega)
+    print(f'timing: cpmg-300 object path {_median_ms(cold, N_TIMED):.4f} ms '
+          f'per cold call with its escalation (median of {N_TIMED}) '
+          f'[{card}]')
+    return {'functional.batched_infidelity (CPMG-300, escalated)': launches,
+            'PulseSequence.get_filter_function (CPMG-300, escalated)':
+            object_launches}
 
 
 if __name__ == '__main__':

@@ -10,7 +10,9 @@ the operators and the basis, as the JAX package's ``vmap`` does.
 ``control_matrix``, ``fidelity_filter_function``, ``infidelity`` and
 ``batched_infidelity`` are differentiable in the tensors of the pulse
 (``torch.autograd``) on both contraction routes, at degenerate spectra
-too; the escalation decision stays outside the graph.
+too; the escalation decision stays outside the graph.  So are the
+first-order error transfer matrices; the second-order ones raise where
+a gradient could reach a degenerate Hamiltonian (:func:`_etm_core`).
 """
 from __future__ import annotations
 
@@ -255,16 +257,32 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
     the integrand of the control matrix and of F^(2).  The second-order
     terms run over chunks of segments that fit
     :func:`.config.memory_budget` (*budget_bytes* overrides it).  The
-    trace contraction takes the basis's precombined combos (n <= 64,
-    :func:`.numeric._cumulant_trace_combos_dev`).
+    trace contraction takes the basis's precombined combos for n <= 64
+    and runs through the basis above, as the object path's
+    (:func:`.numeric._cumulant_contract`).
+
+    Autograd: the first-order result is differentiable in the tensors of
+    the pulse, at degenerate spectra too (the control matrix takes
+    :func:`.numeric._degenerate_control_matrix`, as the infidelity's
+    does).  With *second_order*, a gradient that can reach a Hamiltonian
+    with a degenerate eigenspace raises ``ValueError``: the shifts' terms
+    inside degenerate eigenspaces have no backward yet.
     """
     n_nops = p.n_opers.shape[0]
     idx = np.arange(n_nops)
     s = util.parse_spectrum(spectrum, omega, idx, device=omega.device)
-    eigvals, (_, n_t, b_t, ph, integral), _ = _prep(
+    eigvals, (_, n_t, b_t, ph, integral), degenerate = _prep(
         p, p.c_coeffs, p.n_coeffs, p.dt, omega)
+    if second_order and degenerate is not None:
+        raise ValueError(
+            'the gradient of the second-order error transfer matrix at a '
+            'degenerate Hamiltonian is not implemented: the frequency '
+            'shifts lack the terms inside degenerate eigenspaces; take it '
+            'with second_order=False or without requires_grad')
     step = numeric._ctrlmat_step_contract(n_t, integral, b_t, ph)
     ctrl = step.sum(-4)
+    if degenerate is not None:
+        ctrl = ctrl + degenerate
     diagonal = s.ndim <= 2 and not s.is_complex()
     if diagonal:
         weights = numeric._spectral_weights(s, omega, n_nops)
@@ -273,8 +291,7 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
         gamma = numeric._integrate_2pi(numeric._get_integrand(
             s, omega, idx, 'total', 'generalized', control_matrix=ctrl),
             omega)
-    tg, td = numeric._cumulant_trace_combos_dev(basis, omega.device)
-    k_fn = numeric._cumulant_contract_core(gamma, tg)
+    delta = None
     if second_order:
         cumul_padded = numeric._pad_cumulative(
             step, step.cumsum(-4)[..., :-1, :, :, :])
@@ -289,7 +306,7 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
             delta = numeric._integrate_2pi(numeric._get_integrand(
                 s, omega, idx, 'total', 'generalized', filter_function=f2),
                 omega)
-        k_fn = k_fn + numeric._cumulant_contract_core(delta, td)
+    k_fn = numeric._cumulant_contract(gamma, delta, basis)
     noise_axes = (-4, -3) if s.ndim == 3 else (-3,)
     return numeric._expm(k_fn.sum(noise_axes))
 
@@ -299,7 +316,7 @@ def error_transfer_matrix(p: PulseArrays, spectrum, omega, basis: Basis,
     """Error transfer matrix exp K (n_b, n_b) of one pulse given as
     :class:`PulseArrays`, for a spectrum of ndim 1-3 (a tensor stays on
     its device); *basis* is the :class:`~.basis.Basis` of ``p.basis``,
-    whose dense four-element traces it contracts with.  The object API
+    whose four-element traces it contracts with.  The object API
     (:func:`.numeric.error_transfer_matrix`) computes the same quantity
     with caching."""
     omega = torch.as_tensor(omega, dtype=config.REAL,

@@ -1780,7 +1780,6 @@ def calculate_cumulant_function(
     for d = 2 Pauli and GGM bases), a contraction through the basis
     above.  ``cache_intermediates`` defaults to *second_order*.
     """
-    N = len(pulse.basis)
     if spectrum is None and omega is None:
         if decay_amplitudes is None or (frequency_shifts is None
                                         and second_order):
@@ -1814,19 +1813,29 @@ def calculate_cumulant_function(
             raise ValueError('Frequency shifts not same shape as decay '
                              'amplitudes')
 
-    if N <= 64:
-        tg, td = _cumulant_trace_combos_dev(pulse.basis, pulse.device)
+    return _cumulant_contract(gamma, delta, pulse.basis)
+
+
+def _cumulant_contract(gamma: torch.Tensor, delta: Optional[torch.Tensor],
+                       basis: Basis) -> torch.Tensor:
+    """K of :func:`calculate_cumulant_function` from Gamma and Delta (None
+    at first order), on Gamma's device: for n <= 64 one float64 matmul
+    each with the precombined combos (:func:`_cumulant_trace_combos_dev`),
+    a contraction through the basis above (:func:`_trace_contract_basis`:
+    the combos would be n^4 float64, 34 GB at n = 256)."""
+    if len(basis) <= 64:
+        tg, td = _cumulant_trace_combos_dev(basis, gamma.device)
         k_fn = _cumulant_contract_core(gamma, tg)
-        if second_order:
+        if delta is not None:
             k_fn = k_fn + _cumulant_contract_core(delta, td)
         return k_fn
 
     def contract(coeff, patterns):
-        a, b, c, e = (_trace_contract_basis(coeff, pulse.basis, p)
+        a, b, c, e = (_trace_contract_basis(coeff, basis, p)
                       for p in patterns)
         return -0.5 * (a - b - c + e)
     k_fn = contract(gamma, ('klji', 'kjli', 'kilj', 'kijl'))
-    if second_order:
+    if delta is not None:
         k_fn = k_fn + contract(delta, ('klji', 'lkji', 'klij', 'lkij'))
     return k_fn
 

@@ -121,10 +121,34 @@ def _ds_add(a, b):
     return hi, e - (hi - s)
 
 
+def _zero_padded(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """*x* (B, R, C) in the top left corner of zeros (B, rows, cols), laid
+    out as *x* is (row- or column-major); *x* itself if it fits."""
+    B, R, C = x.shape
+    if (R, C) == (rows, cols):
+        return x
+    if x.stride(-2) == 1 and C > 1:
+        out = x.new_zeros(B, cols, rows).transpose(-1, -2)
+    else:
+        out = x.new_zeros(B, rows, cols)
+    out[:, :R, :C] = x
+    return out
+
+
 def _int_mm_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(B, M, K) int8 @ (B, K, N) int8 -> (B, M, N) int32, exact."""
+    """(B, M, K) int8 @ (B, K, N) int8 -> (B, M, N) int32, exact.
+
+    ``torch._int_mm`` on CUDA takes M > 16 and K, N multiples of 8 only
+    (the CPU takes every shape): the operands are padded with zeros up to
+    that, which adds nothing to the product, and the product is cut back
+    to (M, N)."""
+    M, K = a.shape[-2:]
+    N = b.shape[-1]
+    depth = -(-K // 8) * 8
+    a = _zero_padded(a, max(M, 17), depth)
+    b = _zero_padded(b, depth, -(-N // 8) * 8)
     return torch.stack([torch._int_mm(a[i], b[i])
-                        for i in range(a.shape[0])])
+                        for i in range(a.shape[0])])[:, :M, :N]
 
 
 def _matmul_from_slices(a_sl: Sequence[torch.Tensor],

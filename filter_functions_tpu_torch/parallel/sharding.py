@@ -47,6 +47,15 @@ grape_step                        SUM over omega,          MAX, whole mesh
 A frequency grid passed as a DTensor (:func:`shard_omega`) adds one
 'gather' over ``'omega'`` to the infidelity entry points, which need the
 whole grid for the trapezoid weights.
+
+``sharded_infidelity`` and ``sharded_batched_infidelity`` are
+differentiable (``torch.autograd``) in the tensors of the pulse, as the
+JAX package's are under ``jax.grad``: each rank backpropagates its share
+of the frequency integral, and one SUM over ``'omega'`` in the backward
+pass completes the gradient (:class:`_ReplicatedOverOmega`), none over a
+one-rank ``'omega'`` and none when nothing requires grad.  A rank's
+gradient is that of its own rows: rows of other ``'batch'`` blocks get
+zero, as does the spectrum outside the rank's frequency slice.
 """
 from __future__ import annotations
 
@@ -146,6 +155,62 @@ def _collective(buf: torch.Tensor, mesh, dim: Optional[str], op: str
     collectives.append((op, dim))
     dist.all_reduce(buf, op=_OPS[op], group=group)
     return buf
+
+
+class _SumOverOmega(torch.autograd.Function):
+    """The frequency integral's SUM over ``'omega'`` (:func:`_collective`
+    on a copy: autograd's saved tensors are never reduced in place).
+    Every rank holds the whole sum, so its cotangent is the whole
+    cotangent: the backward pass is the identity."""
+
+    @staticmethod
+    def forward(ctx, partial, mesh):
+        return _collective(partial.clone(), mesh, 'omega', 'sum')
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ReplicatedOverOmega(torch.autograd.Function):
+    """The identity on the pulse's tensors, which every rank of an
+    ``'omega'`` group holds whole; its backward pass is one SUM over
+    ``'omega'`` of their gradients, each rank's being that of its share of
+    the frequency integral.  The gradients travel in one float64 buffer,
+    complex ones as ``view_as_real``, as :func:`_sum_over_omega` packs
+    the GRAPE step's."""
+
+    @staticmethod
+    def forward(ctx, mesh, *tensors):
+        ctx.mesh = mesh
+        return tuple(x.view_as(x) for x in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        parts = [torch.view_as_real(g) if g.is_complex() else g
+                 for g in grads]
+        buf = _collective(torch.cat([x.reshape(-1).to(torch.float64)
+                                     for x in parts]), ctx.mesh, 'omega',
+                          'sum')
+        out, start = [], 0
+        for grad, part in zip(grads, parts):
+            value = buf[start:start + part.numel()].view_as(part)
+            start += part.numel()
+            out.append(torch.complex(value[..., 0], value[..., 1])
+                       if grad.is_complex() else value.to(grad.dtype))
+        return (None, *out)
+
+
+def _replicated(p: functional.PulseArrays, mesh) -> functional.PulseArrays:
+    """*p* with the tensors that require grad passed through
+    :class:`_ReplicatedOverOmega`, so that the backward pass completes
+    their gradients over ``'omega'``."""
+    names = [name for name in p._fields if getattr(p, name).requires_grad]
+    if not (names and torch.is_grad_enabled()):
+        return p
+    tensors = _ReplicatedOverOmega.apply(mesh,
+                                         *(getattr(p, n) for n in names))
+    return p._replace(**dict(zip(names, tensors)))
 
 
 def _max_over(mesh, dim: Optional[str]):
@@ -276,17 +341,19 @@ def sharded_infidelity(p: functional.PulseArrays, spectrum, omega, mesh,
                        escalation_tol: float = config.ESCALATION_TOL):
     """Infidelity (n_nops,) of one pulse with the frequency integral split
     over the mesh's ``'omega'`` dimension and completed by one SUM
-    all-reduce: a DTensor placed ``[Replicate(), Replicate()]``."""
+    all-reduce: a DTensor placed ``[Replicate(), Replicate()]``,
+    differentiable in the tensors of *p* (the module docstring)."""
     Replicate = _dtensor_module().Replicate
     device = p.c_opers.device
     mode = config.contraction_mode(device, contract)
     spectrum, omega, weights = _frequency_share(spectrum, omega, mesh,
                                                 device)
+    p = _replicated(p, mesh)
     one = p._replace(c_coeffs=p.c_coeffs[None], n_coeffs=p.n_coeffs[None],
                      dt=p.dt[None])
     partial = _partial_infidelity(one, spectrum, omega, weights, mesh, None,
                                   mode, escalation_tol, 'omega')[0]
-    infid = _collective(partial.detach().clone(), mesh, 'omega', 'sum')
+    infid = _SumOverOmega.apply(partial, mesh)
     return _dtensor(infid, mesh, [Replicate(), Replicate()])
 
 
@@ -305,16 +372,17 @@ def sharded_batched_infidelity(p: functional.PulseArrays, spectrum, omega,
     The leading batch axis of c_coeffs / n_coeffs / dt must divide over
     the mesh's ``'batch'`` dimension, and *chunk_size* must divide each
     rank's rows.  Returns (batch, n_nops) as a DTensor placed
-    ``[Shard(0), Replicate()]``."""
+    ``[Shard(0), Replicate()]``, differentiable in the tensors of *p*: a
+    rank's gradient is that of its rows (the module docstring)."""
     Shard, Replicate = _dtensor_module().Shard, _dtensor_module().Replicate
     device = p.c_opers.device
     mode = config.contraction_mode(device, contract)
     spectrum, omega, weights = _frequency_share(spectrum, omega, mesh,
                                                 device)
-    partial = _partial_infidelity(_batch_rows(p, mesh), spectrum, omega,
-                                  weights, mesh, chunk_size, mode,
-                                  escalation_tol, None)
-    infid = _collective(partial.detach().clone(), mesh, 'omega', 'sum')
+    partial = _partial_infidelity(_replicated(_batch_rows(p, mesh), mesh),
+                                  spectrum, omega, weights, mesh, chunk_size,
+                                  mode, escalation_tol, None)
+    infid = _SumOverOmega.apply(partial, mesh)
     return _dtensor(infid, mesh, [Shard(0), Replicate()])
 
 

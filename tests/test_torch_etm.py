@@ -162,6 +162,34 @@ def test_batched_etm_matches_single(kind):
                                atol=1e-15)
 
 
+@pytest.mark.parametrize('second_order', [False, True])
+def test_functional_etm_through_the_basis(second_order):
+    """Above 64 basis elements (d = 9, a GGM basis of 81) the functional
+    and batched ETMs contract the cumulant function through the basis,
+    as the object path does, instead of with the n^4 trace combos: each
+    row within 1e-15 of the object path's ETM (the same contraction,
+    batched otherwise), first and second order."""
+    jp, p = _pair(9, 2, 60)
+    omega = np.geomspace(0.1, 10, 16)
+    spectrum = 1e-3 / omega
+    _, arr = _arrays(jp)
+    assert len(p.basis) == 81
+    want = fft.error_transfer_matrix(p, spectrum, omega,
+                                     second_order=second_order)
+    got = functional.error_transfer_matrix(arr, spectrum, omega, p.basis,
+                                           second_order)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-15)
+    batch = arr._replace(c_coeffs=arr.c_coeffs.expand(2, -1, -1),
+                         n_coeffs=arr.n_coeffs.expand(2, -1, -1),
+                         dt=arr.dt.expand(2, -1))
+    got = functional.batched_error_transfer_matrix(batch, spectrum, omega,
+                                                   p.basis, second_order)
+    for row in got:
+        np.testing.assert_allclose(row.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-15)
+
+
 N_OMEGA_FLAGSHIP = 64
 
 
@@ -218,3 +246,77 @@ def test_expm_matches_scipy(n):
             bound = 1e-15 if norm <= 0.5 else 1e-13
             np.testing.assert_allclose(got[b], want, rtol=0,
                                        atol=bound * np.abs(want).max())
+
+
+def _degenerate_pulse():
+    """A d = 2 pulse (Pauli basis, X/2 and Y/2 controls, X/2 and Z/2
+    noise, 4 segments) whose segment 1 has zero amplitude: H = 0 there,
+    one doubly degenerate eigenspace; its arrays and basis."""
+    rng = np.random.default_rng(12)
+    X, Y, Z = fft.util.paulis[1:]
+    coeffs = rng.standard_normal((2, 4))
+    coeffs[:, 1] = 0.0
+    pulse = fft.PulseSequence(
+        [[X / 2, coeffs[0], 'X'], [Y / 2, coeffs[1], 'Y']],
+        [[X / 2, np.ones(4), 'X'], [Z / 2, rng.random(4), 'Z']],
+        1 - 0.5 * rng.random(4), basis=fft.Basis.pauli(1), device='cpu')
+    return functional.make_pulse_arrays(pulse), pulse.basis
+
+
+@pytest.mark.parametrize('entry', ['functional', 'batched'])
+@pytest.mark.parametrize('second_order', [False, True])
+def test_etm_gradient_at_degenerate_spectrum(second_order, entry):
+    """Autograd through the functional ETMs at a degenerate Hamiltonian
+    (the H = 0 segment of :func:`_degenerate_pulse`, 64 frequencies).
+    First order: the directional derivative of a weighted sum of the ETM
+    along a seeded direction in c_coeffs is within 1e-6 relative of
+    central differences at h = 1e-6 (measured 2e-10 to 1.3e-8), for a
+    diagonal spectrum (the folded decay amplitudes) and a cross-spectrum
+    (the integrand), both 30 times those of the tests above so that the
+    differences' rounding (~eps/h of the ETM's unit entries) stays far
+    below the bound; without the degenerate-eigenspace term of the
+    control matrix it is 7.5e-2 to 1.37 off.
+    Second order: a call through which a gradient can reach the
+    degenerate H raises ValueError (the shifts' terms inside degenerate
+    eigenspaces have no backward).  The forward values with requires_grad
+    equal those without, bit for bit."""
+    p, basis = _degenerate_pulse()
+    if entry == 'batched':
+        scales = torch.tensor([1.0, 0.9])[:, None, None]
+        p = p._replace(c_coeffs=scales * p.c_coeffs,
+                       n_coeffs=p.n_coeffs.expand(2, -1, -1),
+                       dt=p.dt.expand(2, -1))
+        call = functional.batched_error_transfer_matrix
+    else:
+        call = functional.error_transfer_matrix
+    omega = np.geomspace(0.1, 30, 64)
+    rng = np.random.default_rng(13)
+    direction = torch.tensor(rng.standard_normal(p.c_coeffs.shape))
+    for kind in ('shared', 'cross'):
+        spectrum = 30 * _spectrum(kind, omega)
+        weights = torch.tensor(rng.standard_normal(
+            (*p.c_coeffs.shape[:-2], 4, 4)))
+
+        def loss(c):
+            return (call(p._replace(c_coeffs=c), spectrum, omega, basis,
+                         second_order) * weights).sum()
+
+        plain = call(p, spectrum, omega, basis, second_order)
+        c = p.c_coeffs.clone().requires_grad_(True)
+        with torch.no_grad():
+            assert torch.equal(call(p._replace(c_coeffs=c), spectrum, omega,
+                                    basis, second_order), plain)
+        if second_order:
+            with pytest.raises(ValueError, match='degenerate'):
+                loss(c)
+            continue
+        assert torch.equal(call(p._replace(c_coeffs=c), spectrum, omega,
+                                basis).detach(), plain)
+        grad, = torch.autograd.grad(loss(c), c)
+        h = 1e-6
+        with torch.no_grad():
+            central = (loss(p.c_coeffs + h * direction)
+                       - loss(p.c_coeffs - h * direction)) / (2 * h)
+        got = (grad * direction).sum()
+        assert abs(got - central) <= 1e-6 * abs(central), (kind, got,
+                                                          central)

@@ -191,3 +191,37 @@ def test_fix_is_the_23_bit_column_fixed_point():
     np.testing.assert_array_equal(
         zi.numpy(), np.round(im * np.exp2(23 - want_e)).astype(np.int32))
     assert np.abs(zr.numpy()).max() <= 2**23
+
+
+@pytest.mark.parametrize('M, K, N', [(100, 2404, 4), (10, 3328, 4608),
+                                     (32, 3328, 64)])
+def test_int_mm_batched_takes_every_shape(M, K, N):
+    """The int8 level product at shapes that torch._int_mm on CUDA refuses
+    (M <= 16, K or N not a multiple of 8: the CPMG-300 train's K = 2404
+    against its N = 4 basis columns) is the exact int32 product, with the
+    right operand row- or column-major (the kernel's digits are
+    K-contiguous); zero padding adds nothing."""
+    rng = np.random.default_rng(M + K + N)
+    a = torch.from_numpy(rng.integers(-64, 65, (2, M, K), dtype=np.int8))
+    b = torch.from_numpy(rng.integers(-64, 65, (2, K, N), dtype=np.int8))
+    want = a.to(torch.int64) @ b.to(torch.int64)
+    for right in (b, b.transpose(-1, -2).contiguous().transpose(-1, -2)):
+        got = ozaki._int_mm_batched(a, right)
+        assert got.dtype == torch.int32 and got.shape == (2, M, N)
+        assert torch.equal(got.to(torch.int64), want)
+
+
+@pytest.mark.gpu
+def test_int_mm_batched_on_card_takes_every_shape():
+    """On the card, the padded int8 level product equals the CPU's at the
+    shapes torch._int_mm on CUDA refuses unpadded."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: cuBLAS\'s int8 GEMM has no CPU '
+                    'mode, the padding is tested above')
+    rng = np.random.default_rng(5)
+    for M, K, N in [(100, 2404, 4), (10, 3328, 4608), (17, 1000, 12)]:
+        a = torch.from_numpy(rng.integers(-64, 65, (2, M, K), dtype=np.int8))
+        b = torch.from_numpy(rng.integers(-64, 65, (2, N, K), dtype=np.int8)
+                             ).transpose(-1, -2)
+        got = ozaki._int_mm_batched(a.cuda(), b.cuda())
+        assert torch.equal(got.cpu(), ozaki._int_mm_batched(a, b))

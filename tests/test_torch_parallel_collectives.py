@@ -110,6 +110,85 @@ def test_collectives_and_parity_scaling(n, scaling_case, tmp_path):
     assert [reduced for _, reduced, _ in out] == [expected, expected, []]
 
 
+@pytest.mark.parametrize('n', [1, 2, 4, 8])
+def test_backward_collectives_scaling(n, scaling_case, tmp_path):
+    """Over n = 1, 2, 4, 8 ranks, a backward pass through the sharded
+    infidelities (gradients with respect to c_coeffs, n_coeffs and dt)
+    adds exactly one SUM over 'omega' to the forward's collectives, which
+    stay as pinned above: on the 1 x n mesh of sharded_infidelity and on
+    the meshes of sharded_batched_infidelity of the scaling test; none on
+    an n x 1 mesh (the 8-row batch split over 'batch') or on one rank,
+    and none when only the spectrum requires grad.  Each rank's
+    infidelities are those of the call without gradients (1e-12
+    relative to the JAX package's)."""
+    if n > len(jax.devices()):
+        pytest.skip('needs 8 virtual devices')
+    calls, want = scaling_case
+    batch_axis = 1 if n <= 2 else 2
+    pulse = ('c_coeffs', 'n_coeffs', 'dt')
+    infid, batched, etm = (kwargs for _, kwargs in calls)
+    eight = dict(p=etm['p'], spectrum=infid['spectrum'],
+                 omega=infid['omega'])
+    rng = np.random.default_rng(n)
+    cases = [((1, n), 'sharded_infidelity', infid, rng.standard_normal(3),
+              pulse),
+             ((batch_axis, n // batch_axis), 'sharded_batched_infidelity',
+              batched, rng.standard_normal((4, 3)), pulse),
+             ((n, 1), 'sharded_batched_infidelity', eight,
+              rng.standard_normal((8, 3)), pulse),
+             ((1, n), 'sharded_infidelity', infid, rng.standard_normal(3),
+              ('spectrum',))]
+    out = run_ranks(torch_testutil.rank_sharded_grads, n, tmp_path,
+                    cases)[0]
+    split = [] if n == 1 else [SUM_OMEGA]
+    assert [forward for _, forward, _, _, _ in out] == [split, split, [],
+                                                         split]
+    assert [backward for _, _, backward, _, _ in out] == [split, split, [],
+                                                          []]
+    (got_infid, *_), (got_batched, *_) = out[:2]
+    np.testing.assert_allclose(got_infid, want[0], rtol=1e-12, atol=0)
+    b = out[1][4][0]
+    rows = 4 // batch_axis
+    np.testing.assert_allclose(got_batched, want[1][b * rows:(b + 1) * rows],
+                               rtol=1e-12, atol=0)
+
+
+def test_backward_packs_complex_gradients(tmp_path):
+    """Gradients with respect to the complex operators travel through the
+    backward pass's one float64 buffer beside the real ones: on a 1 x 2
+    mesh, each rank's gradients of a weighted sharded_infidelity with
+    respect to c_opers, c_coeffs (an odd number of entries before
+    n_opers in the buffer), n_opers and dt are within 1e-12 (of their
+    largest entry) of the unsharded functional.infidelity's, with one
+    SUM over 'omega'."""
+    jp, host = _pulse(2, 5, seed=10)
+    host['c_coeffs'] = host['c_coeffs'][:, :3]
+    host['n_coeffs'] = host['n_coeffs'][:, :3]
+    host['dt'] = host['dt'][:3]
+    omega = np.linspace(0.5, 10, 16)
+    spectrum = 1e-2 / omega
+    weights = np.random.default_rng(10).standard_normal(3)
+    names = ('c_opers', 'c_coeffs', 'n_opers', 'dt')
+    p = pulse_arrays(host)
+    for name in names:
+        getattr(p, name).requires_grad_(True)
+    loss = (functional.infidelity(p, torch.tensor(spectrum),
+                                  torch.tensor(omega))
+            * torch.tensor(weights)).sum()
+    want = dict(zip(names, torch.autograd.grad(
+        loss, [getattr(p, name) for name in names])))
+    out = run_ranks(torch_testutil.rank_sharded_grads, 2, tmp_path,
+                    [((1, 2), 'sharded_infidelity',
+                      dict(p=host, spectrum=spectrum, omega=omega), weights,
+                      names)])
+    for (_, forward, backward, grads, _), in out:
+        assert forward == backward == [SUM_OMEGA]
+        for name in names:
+            w = want[name].numpy()
+            assert grads[name].dtype == w.dtype
+            assert np.abs(grads[name] - w).max() <= 1e-12 * np.abs(w).max()
+
+
 @pytest.fixture(scope='module')
 def deep_case():
     """A random d = 16 pulse of 5 segments (K = 1280: the deep factored

@@ -198,3 +198,72 @@ def test_sharded_batched_infidelity_flagship_shaped(mesh2x4, tmp_path):
     assert got.shape == (batch, 2) and local_shape == [(2, 2)]
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
     assert reduced == [SUM_OMEGA]
+
+
+def _jax_grads(fn, jp, weights):
+    """jax.grad of sum(weights * fn(jp with c_coeffs, n_coeffs, dt)) with
+    respect to those three, as numpy arrays by name."""
+    def loss(c, n, dt):
+        return (fn(jp._replace(c_coeffs=c, n_coeffs=n, dt=dt))
+                * weights).sum()
+    names = ('c_coeffs', 'n_coeffs', 'dt')
+    grads = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(getattr(jp, name)) for name in names))
+    return {name: np.asarray(g) for name, g in zip(names, grads)}
+
+
+@pytest.mark.parametrize('name, shape', [
+    ('sharded_infidelity', (1, 8)),
+    ('sharded_batched_infidelity', (2, 4)),
+    ('sharded_batched_infidelity', (8, 1))])
+def test_sharded_infidelity_gradients_match_jax(name, shape, tmp_path):
+    """Autograd through the sharded infidelities: on each of 8 ranks,
+    ``(result.to_local() * weights).sum().backward()`` gives the gradient
+    with respect to c_coeffs, n_coeffs and dt of the rank's own rows
+    (every row for one pulse), within 1e-12 of their largest entry of
+    jax.grad through the JAX package's sharded and unsharded functions on
+    the same numpy inputs; the rows of other 'batch' blocks get exactly
+    zero.  The backward pass adds one SUM over 'omega', none on a
+    one-rank 'omega'; the forward's collectives are those of a call
+    without gradients."""
+    if len(jax.devices()) < 8:
+        pytest.skip('needs 8 devices')
+    _, jp, _ = _pulse(2, 5, seed=9)
+    omega = np.linspace(0.5, 10, 64)
+    spectrum = 1e-2 / omega
+    rng = np.random.default_rng(9)
+    s, w = jnp.asarray(spectrum), jnp.asarray(omega)
+    if name == 'sharded_infidelity':
+        weights = rng.standard_normal(3)
+        jmesh = jparallel.make_mesh(8)
+        sharded = [lambda q: jparallel.sharded_infidelity(q, s, w, jmesh),
+                   lambda q: jfunctional.infidelity(q, s, w)]
+    else:
+        jp = _batch(jp, 1.0 + 0.03 * np.arange(8))
+        weights = rng.standard_normal((8, 3))
+        jmesh = jparallel.make_mesh(8, batch=shape[0])
+        sharded = [lambda q: jparallel.sharded_batched_infidelity(q, s, w,
+                                                                  jmesh),
+                   lambda q: jfunctional.batched_infidelity(q, s, w)]
+    wants = [_jax_grads(fn, jp, weights) for fn in sharded]
+    ranks = run_ranks(torch_testutil.rank_sharded_grads, 8, tmp_path,
+                      [(shape, name, dict(p=_host(jp), spectrum=spectrum,
+                                          omega=omega), weights,
+                        ('c_coeffs', 'n_coeffs', 'dt'))])
+    rows_per_rank = 8 // shape[0]
+    for (_, forward, backward, grads, (b, _)), in ranks:
+        expected = [] if shape[1] == 1 else [SUM_OMEGA]
+        assert forward == expected and backward == expected
+        for key, got in grads.items():
+            if name == 'sharded_batched_infidelity':
+                rows = slice(b * rows_per_rank, (b + 1) * rows_per_rank)
+                rest = np.ones(len(got), bool)
+                rest[rows] = False
+                assert not got[rest].any(), key
+            else:
+                rows = slice(None)
+            for want in wants:
+                scale = np.abs(want[key][rows]).max()
+                assert scale > 0
+                assert np.abs(got[rows] - want[key][rows]).max() \
+                    <= 1e-12 * scale, key

@@ -5,25 +5,22 @@ the port's default device is the card.  :data:`fft_cpu` is the ``cls``
 they take to build the port's pulse on the CPU.
 
 :func:`run_ranks` runs a function of this module on every rank of a
-``gloo`` process group of spawned processes, for the tests of
-``filter_functions_tpu_torch.parallel``.  This module imports no JAX, so
-the spawned processes never do.
+``gloo`` process group of spawned processes (the port's
+``parallel.ranks.run_ranks``), for the tests of
+``filter_functions_tpu_torch.parallel``.  This module imports no JAX, and
+each rank checks that it never does.
 """
 import contextlib
 import functools
-import multiprocessing
-import pickle
 import sys
-import time
-import traceback
 import types
-from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
 import torch
 
 import filter_functions_tpu_torch as fft
+from filter_functions_tpu_torch.parallel import ranks
 
 #: The JAX package's precomputed flagship arrays.  The port reads no
 #: file; the tests hold its live QFT pulse against these.
@@ -37,61 +34,21 @@ fft_cpu = types.SimpleNamespace(
 
 #: Seconds a world of ranks may take, start-up included, before
 #: :func:`run_ranks` kills it: a collective that some rank never joins
-#: would otherwise hang the test run.
+#: would otherwise hang the test run.  The group's own operations time
+#: out after half of it.
 RANK_DEADLINE = 120.0
-#: Timeout of the process group's own operations, seconds.
-GROUP_TIMEOUT = 60.0
 
 
 def run_ranks(fn, world_size: int, tmp_path, *args, init: bool = True,
               deadline: float = RANK_DEADLINE) -> list:
-    """``fn(*args)`` on each of *world_size* spawned ranks; returns their
-    return values in rank order.
-
-    *fn* is a function of this module (a spawned process imports it by
-    name).  With *init*, each rank first joins a 'gloo' group
-    initialized from a file under *tmp_path* (no TCP port, which would
-    collide between test workers); every rank runs on one thread.  A
-    rank's exception, a non-zero exit or a world still running after
-    *deadline* seconds (its ranks are then killed) fails the call with
-    the ranks' tracebacks.  Results come back through files.
-    """
-    tmp_path = Path(tmp_path)
-    # the arguments go through a file: a large pickle written into a
-    # child's start-up pipe would wait until that child has imported
-    # this module, one child after the other
-    with open(tmp_path / 'args.pkl', 'wb') as f:
-        pickle.dump(args, f)
-    ctx = multiprocessing.get_context('spawn')
-    procs = [ctx.Process(target=_rank_main,
-                         args=(fn.__name__, rank, world_size, str(tmp_path),
-                               init))
-             for rank in range(world_size)]
-    for proc in procs:
-        proc.start()
-    end = time.monotonic() + deadline
-    for proc in procs:
-        proc.join(max(0.0, end - time.monotonic()))
-    hung = [rank for rank, proc in enumerate(procs) if proc.is_alive()]
-    for proc in procs:
-        if proc.is_alive():
-            proc.kill()
-        proc.join()
-    errors = []
-    for rank in range(world_size):
-        err = tmp_path / f'rank{rank}.err'
-        if err.exists():
-            errors.append(f'rank {rank}:\n{err.read_text()}')
-    if hung or errors or any(proc.exitcode != 0 for proc in procs):
-        raise AssertionError(
-            f'{fn.__name__} on {world_size} ranks: still running after '
-            f'{deadline} s {hung}, exit codes '
-            f'{[proc.exitcode for proc in procs]}\n' + '\n'.join(errors))
-    results = []
-    for rank in range(world_size):
-        with open(tmp_path / f'rank{rank}.pkl', 'rb') as f:
-            results.append(pickle.load(f))
-    return results
+    """``fn(*args)`` on each of *world_size* spawned ranks of a 'gloo'
+    group whose files go to *tmp_path*; returns their return values in
+    rank order (``parallel.ranks.run_ranks``; *init* False: no group).
+    *fn* is a function of this module, and no rank may import JAX or the
+    JAX package."""
+    return ranks.run_ranks(_without_jax, world_size, fn.__name__, *args,
+                           init=init, deadline=deadline,
+                           workdir=str(tmp_path))
 
 
 @contextlib.contextmanager
@@ -106,30 +63,14 @@ def one_thread():
         torch.set_num_threads(threads)
 
 
-def _rank_main(name, rank, world_size, out_dir, init):
-    import torch.distributed as dist
-    out = Path(out_dir)
-    try:
-        with open(out / 'args.pkl', 'rb') as f:
-            args = pickle.load(f)
-        assert 'jax' not in sys.modules, 'a rank imported jax'
-        assert 'filter_functions_tpu' not in sys.modules, \
-            'a rank imported the JAX package'
-        torch.set_num_threads(1)
-        if init:
-            dist.init_process_group(
-                'gloo', init_method=f'file://{out / "group"}', rank=rank,
-                world_size=world_size,
-                timeout=timedelta(seconds=GROUP_TIMEOUT))
-        result = globals()[name](*args)
-        with open(out / f'rank{rank}.pkl', 'wb') as f:
-            pickle.dump(result, f)
-    except BaseException:
-        (out / f'rank{rank}.err').write_text(traceback.format_exc())
-        raise
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+def _without_jax(name, *args):
+    """The function *name* of this module on *args*, in a rank that has
+    imported neither JAX nor the JAX package."""
+    result = globals()[name](*args)
+    for module in ('jax', 'filter_functions_tpu'):
+        if module in sys.modules:
+            raise RuntimeError(f'a rank imported {module}')
+    return result
 
 
 # -----------------------------------------------------------------------------
@@ -183,6 +124,45 @@ def rank_sharded_calls(calls):
         full = tuple(_np(r) for r in results)
         out.append((full if isinstance(result, tuple) else full[0], reduced,
                     local))
+    return out
+
+
+def rank_sharded_grads(calls):
+    """Backpropagate a weighted sum of each of *calls*, (mesh shape, name,
+    kwargs, weights, names of the inputs that require grad) with kwargs
+    as in :func:`rank_sharded_calls` (``p`` a dict of numpy arrays;
+    *weights* of the whole result's shape, each rank weighing its own
+    block): ``(result.to_local() * weights' block).sum().backward()``.
+    Returns, per call, (the local result, the forward's collectives, the
+    backward's collectives, {input name: its gradient}, this rank's mesh
+    coordinate)."""
+    from filter_functions_tpu_torch import parallel
+    from filter_functions_tpu_torch.parallel import sharding
+    meshes, out = {}, []
+    for shape, name, kwargs, weights, grad_names in calls:
+        if shape not in meshes:
+            meshes[shape] = parallel.make_mesh(shape[0] * shape[1],
+                                               batch=shape[0], device='cpu')
+        mesh = meshes[shape]
+        p = pulse_arrays(kwargs['p'])
+        spectrum = torch.tensor(kwargs['spectrum'])
+        inputs = {**p._asdict(), 'spectrum': spectrum}
+        for key in grad_names:
+            inputs[key].requires_grad_(True)
+        sharding.collectives = []
+        result = getattr(parallel, name)(
+            p, spectrum, torch.tensor(kwargs['omega']), mesh)
+        forward = list(sharding.collectives)
+        local = result.to_local()
+        weights = torch.tensor(weights)
+        if name == 'sharded_batched_infidelity':
+            weights = sharding._block(weights, mesh, 'batch', 0)
+        sharding.collectives = []
+        (local * weights).sum().backward()
+        backward = list(sharding.collectives)
+        out.append((local.detach().numpy(), forward, backward,
+                    {key: inputs[key].grad.numpy() for key in grad_names},
+                    tuple(mesh.get_coordinate())))
     return out
 
 
