@@ -90,9 +90,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       generator in c_coeffs, within 1e-6 relative of central differences
       at h = 1e-6; the flagship is degenerate on segments 0-2, and the
       derivative without the degenerate-eigenspace term is printed
-      beside it.  The second-order call with a gradient must raise
-      ValueError.  No kernel launch (the ETM contracts each segment in
-      complex128); times forward plus backward, with the peak memory.
+      beside it.  The same for the second-order ETM (the folded shifts):
+      within 1e-6 relative of central differences, printed beside the
+      derivative without the degenerate-eigenspace terms of the per-step
+      control matrices and of the incomplete steps.  No kernel launch
+      (the ETM contracts each segment in complex128); times forward plus
+      backward of each order, with the peak memory.
 8. gradients.
    a. ``torch.autograd.grad`` of the summed ``functional.
       batched_infidelity`` of phase 4's rows 0-3 (chunks of 2, 1000
@@ -263,15 +266,38 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       times the escalated, unescalated and native batched calls in 21
       turns (median and quartiles) and the cold object call.
 
-After phases 3, 5, 6, 7a, 7b, 7c, 7d, 8, 9, 10, 11 (with 12b), 12a and 12c a
-line ``phase time:``
+13. the examples (``examples_torch/``, the counterparts of ``examples/``):
+    each ``main([..., '--device', 'cuda'])`` in process at its default
+    size (``qft``: the flagship on the object path at 500 frequencies, a
+    cold control matrix at K = 3328 that launches the kernel;
+    ``randomized_benchmarking``: 24 Cliffords, lengths 1 2 5 10 20, 10
+    samples, 301 frequencies; ``periodic_driving``: 10^4 repeats at 400
+    frequencies; ``optimal_control``: 300 GRAPE steps of 8 candidates, 16
+    segments, 200 frequencies; the others at theirs); prints its lines,
+    its numbers, its ms and its kernel launches.  Checks each example's
+    invariants (the Hadamard and QFT equivalences, complete positivity
+    and the Gamma-trace identity, the cache flags and the Sigma_gg'
+    identity of the pulse-correlation filter functions, remap's
+    invariance, GRAPE lowering the infidelity), its diagnostics below the
+    tests' bounds (cached against from scratch 1e-10, periodic against
+    standard 1e-10, extended against explicit 1e-13, analytic against
+    autograd 1e-12), that ``qft`` launches the kernel, and every number of
+    all but ``periodic_driving`` and ``optimal_control`` against the
+    port's CPU run of the same example within 1e-10 relative
+    (``example_on_card`` lists the exceptions).
+
+After phases 3, 5, 6, 7a, 7b, 7c, 7d, 8, 9, 10, 11 (with 12b), 12a, 12c and
+13 a line ``phase time:``
 gives the host-clock seconds since the one before.  Before the last line
 come the card's label and the kernels' JSON record, in that order; the
 last line is
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import copy
 import functools
+import importlib.util
+import io
 import json
 import statistics
 import subprocess
@@ -443,6 +469,24 @@ ESCALATED_PARITY = 1e-12
 #: turns: the escalation's cost (the native rerun) is smaller than the
 #: spread of one call's host time between runs (PERF.md, phase 12c).
 ESCALATION_ROUNDS = 21
+#: Phase 13: the examples of examples_torch/, run in this order at their
+#: default sizes; those in EXAMPLE_FIGURES take ``--out``.
+EXAMPLES = ('getting_started', 'qft', 'calculating_quantum_processes',
+            'advanced_concatenation', 'periodic_driving', 'extending_pulses',
+            'randomized_benchmarking', 'optimal_control',
+            'noise_spectroscopy', 'qutip_integration')
+EXAMPLE_FIGURES = {'qft', 'noise_spectroscopy', 'qutip_integration'}
+#: 13: an example's numbers on the card against the port's CPU run of
+#: the same example, relative (tests/test_torch_examples*.py's bound of
+#: the port against the JAX package); the exceptions are in
+#: ``example_on_card``.
+EXAMPLE_PARITY = 1e-10
+#: 13: the diagnostic "max |diff|" numbers of the examples and their
+#: bounds (the tests' bounds).
+EXAMPLE_DIAGNOSTICS = {'cached_vs_scratch': 1e-10,
+                       'periodic_vs_standard': 1e-10,
+                       'extended_vs_explicit': 1e-13,
+                       'gradient_rel_diff': 1e-12}
 
 
 def _card_label() -> str:
@@ -705,6 +749,10 @@ def main() -> int:
     lap('12a')
     concat_launches.update(cpmg_pathology(device, card))
     lap('12c')
+
+    # 13. the examples
+    concat_launches.update(examples_on_card(device, card))
+    lap('13')
 
     print(card)
     print(json.dumps({'kernels': [{
@@ -1120,10 +1168,10 @@ def second_order_tables(device, card) -> int:
 
 def etm_gradient(device, card) -> int:
     """Phase 7d: autograd through a weighted sum of the flagship's
-    first-order functional ETM (row 0, 1000 frequencies) against central
-    differences, and the second-order call with a gradient, which must
-    raise ValueError (the flagship is degenerate on segments 0-2);
-    returns the kernel's launches in the autograd call."""
+    functional ETM (row 0, 1000 frequencies), first and second order,
+    against central differences (the flagship is degenerate on segments
+    0-2), each beside the derivative without its degenerate-eigenspace
+    terms; returns the kernel's launches in the autograd calls."""
     p = qft.qft_pulse_arrays(4, device=device)
     basis = qft.qft_pulse_sequence(4, device=device).basis
     omega, spectrum = _omega_spectrum(device)
@@ -1131,55 +1179,56 @@ def etm_gradient(device, card) -> int:
     weights = torch.from_numpy(rng.standard_normal((256, 256))).to(device)
     direction = torch.from_numpy(rng.standard_normal(
         tuple(p.c_coeffs.shape))).to(device)
+    terms = {'_degenerate_control_matrix': numeric._degenerate_control_matrix,
+             '_degenerate_incomplete_steps':
+             numeric._degenerate_incomplete_steps}
+    launches = 0
+    for second_order in (False, True):
+        order = 'second' if second_order else 'first'
 
-    def loss(c, second_order=False):
-        return (functional.error_transfer_matrix(
-            p._replace(c_coeffs=c), spectrum, omega, basis, second_order)
-            * weights).sum()
+        def loss(c):
+            return (functional.error_transfer_matrix(
+                p._replace(c_coeffs=c), spectrum, omega, basis,
+                second_order) * weights).sum()
 
-    def derivative():
-        c = p.c_coeffs.clone().requires_grad_(True)
-        grad, = torch.autograd.grad(loss(c), c)
-        return (grad * direction).sum().item()
+        def derivative():
+            c = p.c_coeffs.clone().requires_grad_(True)
+            grad, = torch.autograd.grad(loss(c), c)
+            return (grad * direction).sum().item()
 
-    torch.cuda.reset_peak_memory_stats(device)
-    dword.launches = 0
-    got = derivative()
-    launches = dword.launches
-    peak = torch.cuda.max_memory_allocated(device)
-    h = ETM_GRAD_STEP
-    with torch.no_grad():
-        central = ((loss(p.c_coeffs + h * direction)
-                    - loss(p.c_coeffs - h * direction)) / (2 * h)).item()
-    err = abs(got - central) / abs(central)
-    # the parent's functional ETM dropped the degenerate-eigenspace term
-    degenerate_term = numeric._degenerate_control_matrix
-    numeric._degenerate_control_matrix = lambda *args: None
-    try:
-        without = abs(derivative() - central) / abs(central)
-    finally:
-        numeric._degenerate_control_matrix = degenerate_term
-    print(f'etm gradient: functional.error_transfer_matrix of the flagship, '
-          f'first order, {N_OMEGA} frequencies: autograd directional '
-          f'derivative {got:.12e}, central differences (h = {h}) '
-          f'{central:.12e}: relative {err:.3e} (bound {ETM_GRAD_PARITY}); '
-          f'without the degenerate-eigenspace term {without:.3e}; '
-          f'dword_digits launches {launches}')
-    _check('7d: the ETM gradient against central differences', err,
-           ETM_GRAD_PARITY)
-    c = p.c_coeffs.clone().requires_grad_(True)
-    try:
-        loss(c, second_order=True)
-    except ValueError as exc:
-        print(f'etm gradient: second order with requires_grad raises '
-              f'ValueError: {exc}')
-    else:
-        raise AssertionError('7d: the second-order ETM with a gradient at '
-                             'the degenerate flagship did not raise')
-    ms = _median_ms(derivative, N_TIMED)
-    print(f'timing: etm gradient {ms:.4f} ms per forward plus backward '
-          f'(median of {N_TIMED}); peak device memory {peak / 2**30:.2f} '
-          f'GiB [{card}]')
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        dword.launches = 0
+        got = derivative()
+        launches += dword.launches
+        peak = torch.cuda.max_memory_allocated(device)
+        h = ETM_GRAD_STEP
+        with torch.no_grad():
+            central = ((loss(p.c_coeffs + h * direction)
+                        - loss(p.c_coeffs - h * direction)) / (2 * h)).item()
+        err = abs(got - central) / abs(central)
+        # without the zero-valued terms of the derivative inside degenerate
+        # eigenspaces: the parent's first order, and the second order that
+        # the parent refused
+        for name in terms:
+            setattr(numeric, name, lambda *args, **kwargs: None)
+        try:
+            without = abs(derivative() - central) / abs(central)
+        finally:
+            for name, fn in terms.items():
+                setattr(numeric, name, fn)
+        print(f'etm gradient: functional.error_transfer_matrix of the '
+              f'flagship, {order} order, {N_OMEGA} frequencies: autograd '
+              f'directional derivative {got:.12e}, central differences '
+              f'(h = {h}) {central:.12e}: relative {err:.3e} (bound '
+              f'{ETM_GRAD_PARITY}); without the degenerate-eigenspace terms '
+              f'{without:.3e}; dword_digits launches {dword.launches}')
+        _check(f'7d: the {order}-order ETM gradient against central '
+               'differences', err, ETM_GRAD_PARITY)
+        ms = _median_ms(derivative, N_TIMED)
+        print(f'timing: etm gradient, {order} order, {ms:.4f} ms per forward '
+              f'plus backward (median of {N_TIMED}); peak device memory '
+              f'{peak / 2**30:.2f} GiB [{card}]')
     return launches
 
 
@@ -2527,6 +2576,146 @@ def cpmg_pathology(device, card) -> dict:
     return {'functional.batched_infidelity (CPMG-300, escalated)': launches,
             'PulseSequence.get_filter_function (CPMG-300, escalated)':
             object_launches}
+
+
+def _load_example(name: str):
+    """The module ``examples_torch/<name>.py`` of this checkout."""
+    spec = importlib.util.spec_from_file_location(
+        f'examples_torch_{name}',
+        Path(__file__).resolve().parent / 'examples_torch' / f'{name}.py')
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _plain(value):
+    """An example's numbers as printable Python values."""
+    if isinstance(value, dict):
+        return {k: _plain(v) for k, v in value.items()}
+    if isinstance(value, np.ndarray):
+        return value.tolist()
+    return value
+
+
+def _numbers(values, prefix=''):
+    """(key path, value) of every number of an example's result that is
+    neither a timing (a key ending in '_s') nor a diagnostic."""
+    for key, value in values.items():
+        path = f'{prefix}{key}'
+        if str(key).endswith('_s') or key in EXAMPLE_DIAGNOSTICS:
+            continue
+        if isinstance(value, dict):
+            yield from _numbers(value, f'{path}/')
+        else:
+            yield path, value
+
+
+def example_on_card(name, values, cpu) -> None:
+    """Phase 13's checks of one example's numbers on the card: its own
+    invariants, its diagnostics below their bounds, and, where *cpu*
+    (the port's CPU run of the example) is given, every number against
+    it, within EXAMPLE_PARITY relative, exactly for booleans, integers,
+    strings and shapes.  The exceptions: the QFT pulse's infidelity
+    takes the Ozaki route on the card (phase 6's 1e-10 per noise
+    operator, summed over 18); the second-order shift of the ETM is a
+    difference of two ETMs (their 1e-13, absolute); the reconstructed
+    spectrum after 2000 FISTA steps is held as phase 10c holds it
+    (S_HAT_PARITY of its largest node), and its fit residual and
+    recovery error only printed."""
+    invariants = {
+        'getting_started': ['hadamard'],
+        'qft': ['correct_action'],
+        'calculating_quantum_processes': ['completely_positive'],
+        'advanced_concatenation': ['echo_cached',
+                                   'correlations_sum_to_total'],
+        'extending_pulses': ['extend_cached', 'remap_cached',
+                             'remap_invariant'],
+    }.get(name, [])
+    for key in invariants:
+        if values[key] is not True:
+            raise AssertionError(f'13 {name}: {key} is {values[key]}')
+    for key, bound in EXAMPLE_DIAGNOSTICS.items():
+        if key in values:
+            _check(f'13 {name}: {key}', values[key], bound)
+    if name == 'calculating_quantum_processes':
+        _check('13 calculating_quantum_processes: the Gamma-trace identity',
+               abs(values['gamma_trace'] / values['infidelity'] - 1), 1e-12)
+    if name == 'optimal_control' and not (
+            values['final_loss'] < values['initial_loss']
+            and values['improvement'] > 1):
+        raise AssertionError(f'13 optimal_control: GRAPE did not lower the '
+                             f'infidelity: {values}')
+    if cpu is None:
+        return
+    absolute = {'qft/infidelity': 18 * PARITY,
+                'calculating_quantum_processes/second_order_shift':
+                ETM_BATCH_PARITY,
+                'noise_spectroscopy/s_nodes': S_HAT_PARITY * float(
+                    np.abs(cpu.get('s_nodes', 0)).max())}
+    skipped = {'noise_spectroscopy/fit_residual',
+               'noise_spectroscopy/recovery_median_rel_err'}
+    want = dict(_numbers(cpu))
+    got = dict(_numbers(values))
+    if set(got) != set(want):
+        raise AssertionError(f'13 {name}: the card\'s numbers '
+                             f'{sorted(got)} are not the CPU\'s')
+    worst, held = 0.0, []
+    for path, value in got.items():
+        key = f'{name}/{path}'
+        g, w = np.asarray(value), np.asarray(want[path])
+        if key in skipped:
+            continue
+        if w.dtype.kind not in 'fc':
+            if not np.array_equal(g, w):
+                raise AssertionError(f'13 {key}: {value} on the card, '
+                                     f'{want[path]} on the CPU')
+        elif key in absolute:
+            diff = float(np.abs(g - w).max())
+            held.append(f'{path} {diff:.3e} absolute (bound '
+                        f'{absolute[key]:.3e})')
+            _check(f'13 {key} against the CPU', diff, absolute[key])
+        else:
+            rel = float((np.abs(g - w) / np.where(w == 0, 1.0, np.abs(w))
+                         ).max())
+            worst = max(worst, rel)
+            _check(f'13 {key} against the CPU', rel, EXAMPLE_PARITY)
+    print(f'13 {name}: against the port\'s CPU run, largest relative '
+          f'difference {worst:.3e} (bound {EXAMPLE_PARITY})'
+          + ''.join(f'; {h}' for h in held))
+
+
+def examples_on_card(device, card) -> dict:
+    """Phase 13: each ``examples_torch/<name>.main([..., '--device',
+    'cuda'])`` in process at its default size (figures, where matplotlib
+    imports, under a temporary ``--out``): its numbers, its ms and its
+    kernel launches; checked by :func:`example_on_card`, against the
+    port's CPU run of the example for all but periodic_driving (its
+    numbers are timings and a diagnostic) and optimal_control (300 GRAPE
+    steps on the host).  Returns the launches per example."""
+    launches = {}
+    with tempfile.TemporaryDirectory() as out:
+        for name in EXAMPLES:
+            module = _load_example(name)
+            extra = ['--out', out] if name in EXAMPLE_FIGURES else []
+            torch.cuda.synchronize()
+            dword.launches = 0
+            t0 = time.perf_counter()
+            values = module.main(['--device', 'cuda'] + extra)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches[f'examples_torch/{name}.py'] = dword.launches
+            print(f'13 {name}: {ms:.1f} ms on the card, dword_digits '
+                  f'launches {dword.launches} [{card}]; numbers '
+                  f'{_plain(values)}')
+            cpu = None
+            if name not in ('periodic_driving', 'optimal_control'):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cpu = module.main(['--device', 'cpu'] + extra)
+            example_on_card(name, values, cpu)
+    if not launches['examples_torch/qft.py'] >= 1:
+        raise AssertionError('13: the qft example never launched '
+                             'dword_digits')
+    return launches
 
 
 if __name__ == '__main__':

@@ -11,8 +11,7 @@ the operators and the basis, as the JAX package's ``vmap`` does.
 ``batched_infidelity`` are differentiable in the tensors of the pulse
 (``torch.autograd``) on both contraction routes, at degenerate spectra
 too; the escalation decision stays outside the graph.  So are the
-first-order error transfer matrices; the second-order ones raise where
-a gradient could reach a degenerate Hamiltonian (:func:`_etm_core`).
+error transfer matrices, first and second order (:func:`_etm_core`).
 """
 from __future__ import annotations
 
@@ -48,14 +47,14 @@ def make_pulse_arrays(pulse) -> PulseArrays:
                        pulse._dev_arr('dt'), pulse.basis.tensor(pulse.device))
 
 
-def _prep(p: PulseArrays, c_coeffs: torch.Tensor, n_coeffs: torch.Tensor,
-          dt: torch.Tensor, omega: torch.Tensor
-          ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...],
-                     Optional[torch.Tensor]]:
-    """Diagonalization and per-segment step terms of the pulses with
-    these coefficients and durations (any leading batch axes): (eigvals,
-    step terms, the degenerate-eigenspace term of the control matrix,
-    :func:`.numeric._degenerate_control_matrix`, or None)."""
+def _diagonalized(p: PulseArrays, c_coeffs: torch.Tensor,
+                  n_coeffs: torch.Tensor, dt: torch.Tensor,
+                  omega: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             Tuple[torch.Tensor, ...]]:
+    """(Hamiltonians, eigvals, eigvecs, per-segment step terms) of the
+    pulses with these coefficients and durations (any leading batch
+    axes)."""
     ham = torch.einsum('jmn,...jg->...gmn', p.c_opers,
                        c_coeffs.to(p.c_opers.dtype))
     eigvals, eigvecs, propagators = numeric.diagonalize(ham, dt)
@@ -64,6 +63,19 @@ def _prep(p: PulseArrays, c_coeffs: torch.Tensor, n_coeffs: torch.Tensor,
     terms = numeric._ctrlmat_step_terms(
         eigvals, eigvecs, propagators[..., :-1, :, :], omega, p.basis,
         p.n_opers, n_coeffs, dt, t[..., :-1])
+    return ham, eigvals, eigvecs, terms
+
+
+def _prep(p: PulseArrays, c_coeffs: torch.Tensor, n_coeffs: torch.Tensor,
+          dt: torch.Tensor, omega: torch.Tensor
+          ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...],
+                     Optional[torch.Tensor]]:
+    """Diagonalization and per-segment step terms of the pulses with
+    these coefficients and durations (any leading batch axes): (eigvals,
+    step terms, the degenerate-eigenspace term of the control matrix,
+    :func:`.numeric._degenerate_control_matrix`, or None)."""
+    ham, eigvals, eigvecs, terms = _diagonalized(p, c_coeffs, n_coeffs, dt,
+                                                 omega)
     return eigvals, terms, numeric._degenerate_control_matrix(
         ham, eigvals, eigvecs, terms, omega, dt)
 
@@ -261,27 +273,31 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
     and runs through the basis above, as the object path's
     (:func:`.numeric._cumulant_contract`).
 
-    Autograd: the first-order result is differentiable in the tensors of
-    the pulse, at degenerate spectra too (the control matrix takes
+    Autograd: the result is differentiable in the tensors of the pulse,
+    at degenerate spectra too.  The terms that :class:`.numeric._Eigh`
+    drops inside degenerate eigenspaces are zero-valued terms with their
+    own backward: first order, the control matrix takes
     :func:`.numeric._degenerate_control_matrix`, as the infidelity's
-    does).  With *second_order*, a gradient that can reach a Hamiltonian
-    with a degenerate eigenspace raises ``ValueError``: the shifts' terms
-    inside degenerate eigenspaces have no backward yet.
+    does; with *second_order* the per-step control matrices take its
+    per-step variant before they are summed (the first-order control
+    matrix) and accumulated (the complete steps), and the shifts or
+    F^(2) take :func:`.numeric._degenerate_incomplete_steps` (the
+    incomplete steps).  Both are built only where a gradient reaches a
+    degenerate Hamiltonian; the forward values do not change.
     """
     n_nops = p.n_opers.shape[0]
     idx = np.arange(n_nops)
     s = util.parse_spectrum(spectrum, omega, idx, device=omega.device)
-    eigvals, (_, n_t, b_t, ph, integral), degenerate = _prep(
-        p, p.c_coeffs, p.n_coeffs, p.dt, omega)
-    if second_order and degenerate is not None:
-        raise ValueError(
-            'the gradient of the second-order error transfer matrix at a '
-            'degenerate Hamiltonian is not implemented: the frequency '
-            'shifts lack the terms inside degenerate eigenspaces; take it '
-            'with second_order=False or without requires_grad')
+    ham, eigvals, eigvecs, terms = _diagonalized(p, p.c_coeffs, p.n_coeffs,
+                                                 p.dt, omega)
+    _, n_t, b_t, ph, integral = terms
     step = numeric._ctrlmat_step_contract(n_t, integral, b_t, ph)
+    degenerate = numeric._degenerate_control_matrix(
+        ham, eigvals, eigvecs, terms, omega, p.dt, per_step=second_order)
+    if second_order and degenerate is not None:
+        step = step + degenerate
     ctrl = step.sum(-4)
-    if degenerate is not None:
+    if not second_order and degenerate is not None:
         ctrl = ctrl + degenerate
     diagonal = s.ndim <= 2 and not s.is_complex()
     if diagonal:
@@ -295,14 +311,22 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
     if second_order:
         cumul_padded = numeric._pad_cumulative(
             step, step.cumsum(-4)[..., :-1, :, :, :])
+        incomplete = numeric._degenerate_incomplete_steps(
+            ham, eigvals, eigvecs, n_t, b_t, omega, p.dt,
+            weights if diagonal else None, budget_bytes)
         if diagonal:
-            delta = numeric._second_order_diag_shifts(
+            shifts = numeric._second_order_diag_shifts(
                 eigvals, n_t, b_t, step, cumul_padded, omega, p.dt,
-                weights, budget_bytes).real
+                weights, budget_bytes)
+            if incomplete is not None:
+                shifts = shifts + incomplete
+            delta = shifts.real
         else:
             f2 = numeric._second_order_total(eigvals, n_t, b_t, step,
                                              cumul_padded, omega, p.dt,
                                              budget_bytes)
+            if incomplete is not None:
+                f2 = f2 + incomplete
             delta = numeric._integrate_2pi(numeric._get_integrand(
                 s, omega, idx, 'total', 'generalized', filter_function=f2),
                 omega)

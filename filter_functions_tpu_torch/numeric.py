@@ -333,6 +333,40 @@ def _frac_divdiff_coeffs(a: torch.Tensor, b: torch.Tensor, dt: torch.Tensor,
     return torch.where(small, series, closed) * inv_fact.reshape(k_shape)
 
 
+def _k2_arguments(omega: torch.Tensor, eigvals: torch.Tensor,
+                  dt: torch.Tensor):
+    r"""The arguments of the K2 lattice of segments with eigenvalues
+    *eigvals* (..., d) and durations *dt* (...), for omega (n_w,), with
+    ij and mn flattened row-major: x = Omega_ij - omega (o, ij), y =
+    omega + Omega_mn (o, mn), z = Omega_ij + Omega_mn (ij, mn), a =
+    -omega dt (o,) and b = Omega dt (ij,), sin/cos(x dt) by the angle
+    addition of a and b, frac(x) and frac(z).
+
+    Returns (x, y, z, a, b, sin_x, cos_x, f_x, f_z)."""
+    d = eigvals.shape[-1]
+    lead = eigvals.shape[:-1]
+    dE = (eigvals[..., :, None] - eigvals[..., None, :]).reshape(*lead,
+                                                                  d * d)
+    dt_o = dt[..., None, None]
+    x = dE[..., None, :] - omega[:, None]                 # (o, ij)
+    y = omega[:, None] + dE[..., None, :]                 # (o, mn)
+    z = dE[..., :, None] + dE[..., None, :]               # (ij, mn)
+
+    # sin/cos(x dt) by angle addition of -omega dt and Omega_ij dt
+    a = -omega * dt[..., None]                            # (o,)
+    sa, ca = torch.sin(a)[..., :, None], torch.cos(a)[..., :, None]
+    b = dE * dt[..., None]                                # (ij,)
+    sb, cb = torch.sin(b)[..., None, :], torch.cos(b)[..., None, :]
+    sin_x = sb * ca + cb * sa
+    cos_x = cb * ca - sb * sa
+
+    f_x = torch.complex(*_frac_from_trig(x, sin_x, cos_x, dt_o))
+    zdt = z * dt_o
+    f_z = torch.complex(*_frac_from_trig(z, torch.sin(zdt), torch.cos(zdt),
+                                         dt_o))
+    return x, y, z, a, b, sin_x, cos_x, f_x, f_z
+
+
 def _second_order_integral_single(omega: torch.Tensor, eigvals: torch.Tensor,
                                   dt: torch.Tensor) -> torch.Tensor:
     r"""K2: the nested second-order integral I_{ijmn}(omega) of segments
@@ -358,25 +392,8 @@ def _second_order_integral_single(omega: torch.Tensor, eigvals: torch.Tensor,
     d = eigvals.shape[-1]
     lead = eigvals.shape[:-1]
     n_w = omega.shape[-1]
-    dE = (eigvals[..., :, None] - eigvals[..., None, :]).reshape(*lead,
-                                                                  d * d)
     dt_o = dt[..., None, None]
-    x = dE[..., None, :] - omega[:, None]                 # (o, ij)
-    y = omega[:, None] + dE[..., None, :]                 # (o, mn)
-    z = dE[..., :, None] + dE[..., None, :]               # (ij, mn)
-
-    # sin/cos(x dt) by angle addition of -omega dt and Omega_ij dt
-    a = -omega * dt[..., None]                            # (o,)
-    sa, ca = torch.sin(a)[..., :, None], torch.cos(a)[..., :, None]
-    b = dE * dt[..., None]                                # (ij,)
-    sb, cb = torch.sin(b)[..., None, :], torch.cos(b)[..., None, :]
-    sin_x = sb * ca + cb * sa
-    cos_x = cb * ca - sb * sa
-
-    f_x = torch.complex(*_frac_from_trig(x, sin_x, cos_x, dt_o))
-    zdt = z * dt_o
-    f_z = torch.complex(*_frac_from_trig(z, torch.sin(zdt), torch.cos(zdt),
-                                         dt_o))
+    x, y, _, a, b, sin_x, cos_x, f_x, f_z = _k2_arguments(omega, eigvals, dt)
     mask_y = y != 0.0
     r_y = 1.0 / torch.where(mask_y, y, 1.0)
     general = (f_x[..., :, :, None] - f_z[..., None, :, :]) \
@@ -431,26 +448,8 @@ def _second_order_factored_single(omega: torch.Tensor, eigvals: torch.Tensor,
     with ij and mn flattened row-major, as the JAX package's
     ``_second_order_factored_single`` under ``vmap``.
     """
-    d = eigvals.shape[-1]
-    lead = eigvals.shape[:-1]
-    dE = (eigvals[..., :, None] - eigvals[..., None, :]).reshape(*lead,
-                                                                  d * d)
     dt_o = dt[..., None, None]
-    x = dE[..., None, :] - omega[:, None]                 # (o, ij)
-    y = omega[:, None] + dE[..., None, :]                 # (o, mn)
-    z = dE[..., :, None] + dE[..., None, :]               # (ij, mn)
-
-    a = -omega * dt[..., None]
-    sa, ca = torch.sin(a)[..., :, None], torch.cos(a)[..., :, None]
-    b = dE * dt[..., None]
-    sb, cb = torch.sin(b)[..., None, :], torch.cos(b)[..., None, :]
-    sin_x = sb * ca + cb * sa
-    cos_x = cb * ca - sb * sa
-
-    f_x = torch.complex(*_frac_from_trig(x, sin_x, cos_x, dt_o))
-    zdt = z * dt_o
-    f_z = torch.complex(*_frac_from_trig(z, torch.sin(zdt), torch.cos(zdt),
-                                         dt_o))
+    x, y, _, a, b, sin_x, cos_x, f_x, f_z = _k2_arguments(omega, eigvals, dt)
 
     ydt = y * dt_o
     mask_y = y != 0.0
@@ -664,37 +663,88 @@ class _DegenerateControlMatrix(torch.autograd.Function):
         G, d = w.shape[-2:]
         n_nops, n_basis, n_w = g.shape[-3:]
         lead = g.shape[:-3]
-        phi = omega[:, None, None] + (w[..., :, None]
-                                      - w[..., None, :])[..., None, :, :]
-        slope = _first_order_integral_slope(
-            phi, dt[..., None, None, None]) * ph[..., None, None]
         # U[a, k, (g m n)] = sum_o conj(G[a, k, o]) ph[g, o] I'[g, o, m, n]
         u = g.conj().reshape(*lead, n_nops * n_basis, n_w) \
-            @ slope.movedim(-3, -4).reshape(*lead, n_w, G * d * d)
-        # z[g, a, m, n] = sum_k U[a, k, g, m, n] Cbar_k[g, n, m]
-        cbar = b_t.transpose(-1, -2).transpose(-4, -3)      # (k, g, m, n)
-        z = (u.reshape(*lead, n_nops, n_basis, G, d, d)
-             * cbar[..., None, :, :, :, :]).sum(-4).movedim(-4, -3)
-        x = n_t.movedim(-4, -3)                             # (g, a, m, n)
-        coeff = (z @ x.mT - x.mT @ z).sum(-3)
+            @ _phased_slopes(w, ph, omega, dt).movedim(-3, -4).reshape(
+                *lead, n_w, G * d * d)
+        coeff = _slope_coeff(u.reshape(*lead, n_nops, n_basis, G, d, d),
+                             n_t, b_t)
         return (_degenerate_grad(coeff, w, v), None, None, None, None, None,
                 None, None)
 
 
-def _degenerate_control_matrix(h, eigvals, eigvecs, terms, omega, dt):
+class _DegenerateStepControlMatrix(torch.autograd.Function):
+    r"""Per-step variant of :class:`_DegenerateControlMatrix`: zeros of
+    the per-step control matrices' shape (..., G, n_nops, n_b, n_w), whose
+    backward takes a per-step cotangent, so that each segment's term
+    reaches every sum of steps that autograd sees (the complete steps and
+    cumulative control matrices of the second order).  The same
+    arguments."""
+
+    @staticmethod
+    def forward(ctx, h, w, v, n_t, b_t, ph, omega, dt):
+        ctx.save_for_backward(w, v, n_t, b_t, ph, omega, dt)
+        return h.new_zeros(*n_t.shape[:-4], n_t.shape[-3], n_t.shape[-4],
+                           b_t.shape[-3], omega.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        w, v, n_t, b_t, ph, omega, dt = ctx.saved_tensors
+        G, d = w.shape[-2:]
+        n_nops, n_basis, n_w = g.shape[-3:]
+        lead = g.shape[:-4]
+        # U[g, a, k, (m n)] = sum_o conj(G[g, a, k, o]) ph[g, o] I'[g, o, m, n]
+        u = g.conj().reshape(*lead, G, n_nops * n_basis, n_w) \
+            @ _phased_slopes(w, ph, omega, dt).reshape(*lead, G, n_w, d * d)
+        u = u.reshape(*lead, G, n_nops, n_basis, d, d).movedim(-5, -3)
+        coeff = _slope_coeff(u, n_t, b_t)
+        return (_degenerate_grad(coeff, w, v), None, None, None, None, None,
+                None, None)
+
+
+def _phased_slopes(w, ph, omega, dt) -> torch.Tensor:
+    """ph[g, o] I'[g, o, m, n] (..., G, n_w, d, d): the phased slopes of
+    the first-order integral at phi = omega + w_m - w_n."""
+    phi = omega[:, None, None] + (w[..., :, None]
+                                  - w[..., None, :])[..., None, :, :]
+    return _first_order_integral_slope(
+        phi, dt[..., None, None, None]) * ph[..., None, None]
+
+
+def _slope_coeff(u, n_t, b_t) -> torch.Tensor:
+    """The coefficient (..., G, d, d) of D_pq (:func:`_degenerate_grad`)
+    of sum_{a, k, m, n} U[a, k, g, m, n] [D, Bbar_a]_mn Cbar_k,nm, from
+    U (..., n_nops, n_b, G, d, d)."""
+    # z[g, a, m, n] = sum_k U[a, k, g, m, n] Cbar_k[g, n, m]
+    cbar = b_t.transpose(-1, -2).transpose(-4, -3)          # (k, g, m, n)
+    z = (u * cbar[..., None, :, :, :, :]).sum(-4).movedim(-4, -3)
+    x = n_t.movedim(-4, -3)                                 # (g, a, m, n)
+    return (z @ x.mT - x.mT @ z).sum(-3)
+
+
+def _reaches_degenerate(h, eigvals) -> bool:
+    """Whether a gradient reaches the Hamiltonians *h* and one of them
+    has a degenerate eigenspace (eigenvalues *eigvals*)."""
+    if not (torch.is_grad_enabled() and h.requires_grad):
+        return False
+    _, degenerate = _eig_gaps(eigvals.detach())
+    return bool((degenerate.sum((-1, -2)) > eigvals.shape[-1]).any())
+
+
+def _degenerate_control_matrix(h, eigvals, eigvecs, terms, omega, dt,
+                               per_step: bool = False):
     """The :class:`_DegenerateControlMatrix` term of the control matrix
     of Hamiltonians *h* with eigendecomposition (eigvals, eigvecs) and
-    step terms *terms* (:func:`_ctrlmat_step_terms`), to be added to it;
-    None where no gradient reaches *h* or no eigenspace is degenerate."""
-    if not (torch.is_grad_enabled() and h.requires_grad):
-        return None
-    _, degenerate = _eig_gaps(eigvals.detach())
-    if not bool((degenerate.sum((-1, -2)) > eigvals.shape[-1]).any()):
+    step terms *terms* (:func:`_ctrlmat_step_terms`), to be added to it,
+    or with *per_step* the :class:`_DegenerateStepControlMatrix` term of
+    the per-step control matrices; None where no gradient reaches *h* or
+    no eigenspace is degenerate."""
+    if not _reaches_degenerate(h, eigvals):
         return None
     _, n_t, b_t, ph, _ = terms
-    return _DegenerateControlMatrix.apply(
-        h, eigvals.detach(), eigvecs.detach(), n_t.detach(), b_t.detach(),
-        ph.detach(), omega.detach(), dt.detach())
+    fn = _DegenerateStepControlMatrix if per_step else _DegenerateControlMatrix
+    return fn.apply(h, eigvals.detach(), eigvecs.detach(), n_t.detach(),
+                    b_t.detach(), ph.detach(), omega.detach(), dt.detach())
 
 
 def _ctrlmat_step_contract(n_opers_transformed, integral, basis_transformed,
@@ -1184,6 +1234,26 @@ def _second_order_factored_contract(omega, eigvals, dt, nob: torch.Tensor
                                 n_basis), 1, 3, 2, 4, 0)
 
 
+def _weighted_lattice(left, right, zterms, weights: torch.Tensor
+                      ) -> torch.Tensor:
+    """sum_o weights[a, o] L[..., o, ij, mn] (..., n_nops, d^2, d^2) of a
+    lattice given as separable tables, L = sum_t left_t[o, ij]
+    right_t[o, mn] + sum_s Z_s[ij, mn] rho_s[o, mn] (*zterms* the pairs
+    (Z_s, rho_s)): the weights fold into the real mn-indexed tables, one
+    matmul reduces over (t, o), and each Z_s term reduces over o on its
+    own."""
+    n_t, n_w, d2 = left.shape[-3:]
+    lead = left.shape[:-3]
+    n_nops = weights.shape[0]
+    folded = right[..., :, :, None, :] * weights.mT[:, :, None]
+    ell = _mm_real(left.reshape(*lead, n_t * n_w, d2).mT,
+                   folded.reshape(*lead, n_t * n_w, n_nops * d2))
+    ell = ell.reshape(*lead, d2, n_nops, d2).transpose(-3, -2)
+    for zt, rho in zterms:
+        ell = ell + zt[..., None, :, :] * (weights @ rho)[..., :, None, :]
+    return ell
+
+
 def _factored_weighted_lattice(omega, eigvals, dt, weights: torch.Tensor
                                ) -> torch.Tensor:
     r"""ell[..., g, a, ij, mn] = sum_o weights[a, o] I[..., g, o, ij, mn]
@@ -1194,14 +1264,60 @@ def _factored_weighted_lattice(omega, eigvals, dt, weights: torch.Tensor
     real.  Returns complex (..., g, n_nops, d^2, d^2): weights @ the K2
     lattice of :func:`_second_order_integral_single`."""
     left, right, f_z, r_big = _factored_stacks(omega, eigvals, dt)
-    n_t, n_w, d2 = left.shape[-3:]
-    lead = left.shape[:-3]
-    n_nops = weights.shape[0]
-    folded = right[..., :, :, None, :] * weights.mT[:, :, None]
-    ell = _mm_real(left.reshape(*lead, n_t * n_w, d2).mT,
-                   folded.reshape(*lead, n_t * n_w, n_nops * d2))
-    ell = ell.reshape(*lead, d2, n_nops, d2).transpose(-3, -2)
-    return ell - f_z[..., None, :, :] * (weights @ r_big)[..., :, None, :]
+    return _weighted_lattice(left, right, [(-f_z, r_big)], weights)
+
+
+def _factored_slope_stacks(omega, eigvals, dt):
+    r"""The derivatives of the K2 lattice I[o, ij, mn] of segments
+    *eigvals* (..., g, d), *dt* (..., g) in Omega_ij (slot 1) and in
+    Omega_mn (slot 2), Omega_ij = w_i - w_j, as separable tables: for each
+    slot (left (..., T, n_w, d^2) complex, right (..., T, n_w, d^2) real,
+    [(Z (..., d^2, d^2) complex, rho (..., n_w, d^2) real), ...]) with
+
+        dI[o, ij, mn] = sum_t left_t[o, ij] right_t[o, mn]
+                        + sum_s Z_s[ij, mn] rho_s[o, mn].
+
+    Each table entry is a function of one difference, so the slopes are
+    elementwise, from D_k(u) = -frac^{(k+1)}(u)/(k+1)!
+    (:func:`_frac_divdiff_coeffs`): frac'(u) = -D_0(u) and D_k' =
+    (k+2) D_{k+1}.  With r = 1/y off the series branch (|y dt| >=
+    _SO_SMALL_Y) and s_k = (y dt)^k on it, y == 0 included::
+
+        slot 1:  frac'(x) r - frac'(z) r + sum_k (k+2) dt dks_{k+1}(x) s_k
+        slot 2:  -frac(x) r^2 + frac(z) r^2 - frac'(z) r
+                 + sum_{k>=1} dks_k(x) k dt s_{k-1}
+
+    for k < _SO_SMALL_K, dks_k = D_k/dt^k.  On the branch y == 0 the
+    forward takes the limit ``special`` = D_0(x), independent of y; the
+    series at y = 0 is that limit and carries its slopes, D_1 in y and
+    2 D_1 in x, which the limit's constant mask cannot.  At x == 0 the
+    Maclaurin branch of D_k holds the limit."""
+    K = _SO_SMALL_K
+    dt_o = dt[..., None, None]
+    _, y, z, a, b, sin_x, cos_x, f_x, f_z = _k2_arguments(omega, eigvals, dt)
+    fp_z = 1j * _first_order_integral_slope(z, dt_o)     # frac'(z)
+
+    k_shape = (K + 1,) + (1,) * dt.ndim
+    dt_pow = dt[None] ** -torch.arange(K + 1, dtype=dt.dtype,
+                                       device=dt.device).reshape(k_shape)
+    dks = _frac_divdiff_coeffs(a, b, dt, K + 1, sin_x, cos_x) \
+        * dt_pow[..., None, None]                         # (K+1, ..., o, ij)
+    ydt = y * dt_o
+    small = torch.abs(ydt) < _SO_SMALL_Y
+    r = torch.where(small, 0.0, 1.0 / torch.where(small, 1.0, y))
+    s = torch.cumprod(torch.cat([small.to(config.REAL)[None],
+                                 ydt.expand(K - 1, *ydt.shape)]), 0)
+    kdt = torch.arange(1, K + 1, dtype=dt.dtype, device=dt.device
+                       ).reshape((K,) + (1,) * dt.ndim)[..., None, None] \
+        * dt_o                                            # k dt, k = 1..K
+
+    left1 = torch.cat([-dks[:1], (kdt + dt_o) * dks[1:]])
+    right1 = torch.cat([r[None], s])
+    left2 = torch.cat([f_x[None], dks[1:]])
+    right2 = torch.cat([-(r * r)[None], kdt * s])
+    return ((left1.movedim(0, -3), right1.movedim(0, -3), [(-fp_z, r)]),
+            (left2.movedim(0, -3), right2.movedim(0, -3),
+             [(f_z, r * r), (-fp_z, r)]))
 
 
 def _second_order_total(eigvals, n_opers_transformed, basis_transformed,
@@ -1489,6 +1605,137 @@ def _second_order_diag_shifts(eigvals, n_opers_transformed,
         nob_c = nob[..., sl, :, :, :]                     # (g, a, k, ij)
         shifts = shifts + (nob_c @ (ell @ nob_c.mT)).sum(-4)
     return shifts
+
+
+class _DegenerateIncompleteSteps(torch.autograd.Function):
+    r"""Zero in value; its backward is the part of the derivative of the
+    incomplete-step term of the second order that :class:`_Eigh` drops.
+    Each segment contributes
+
+        sum_{ij, mn} nob_A[ij] I[o, ij, mn] nob_B[mn],
+        nob_(a k)[ij] = Bbar_a[ij] Cbar_k[ji],
+
+    whose derivative along the off-diagonal entries D_pq of a
+    degenerate eigenspace puts [D, Bbar_a] in place of Bbar_a in either
+    factor, with the slope of I in that factor's eigenvalue difference
+    (:func:`_factored_slope_stacks`).  The cotangent meets the slopes
+    over the same chunks of segments as the forward, from the separable
+    tables: the (n_w, d^4) lattice is never built.
+
+    forward(h (..., G, d, d), w, v, n_opers_transformed, basis_transformed,
+    omega, dt, weights, budget_bytes), all but h detached.  With
+    *weights* (n_nops, n_w) the term of the diagonal shifts
+    (:func:`_second_order_diag_shifts`): zeros (..., n_nops, n_b, n_b)
+    complex; without, of F^(2) (:func:`_second_order_total`): zeros
+    (..., n_nops, n_nops, n_b, n_b, n_w).
+    """
+
+    @staticmethod
+    def forward(ctx, h, w, v, n_t, b_t, omega, dt, weights, budget_bytes):
+        ctx.save_for_backward(w, v, n_t, b_t, omega, dt, weights)
+        ctx.budget_bytes = budget_bytes
+        n_nops, n_basis = n_t.shape[-4], b_t.shape[-3]
+        lead = n_t.shape[:-4]
+        if weights is not None:
+            return h.new_zeros(*lead, n_nops, n_basis, n_basis)
+        return h.new_zeros(*lead, n_nops, n_nops, n_basis, n_basis,
+                           omega.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        w, v, n_t, b_t, omega, dt, weights = ctx.saved_tensors
+        G, d = w.shape[-2:]
+        n_nops, n_basis = n_t.shape[-4], b_t.shape[-3]
+        n_w = omega.shape[-1]
+        A = n_nops * n_basis
+        lead = w.shape[:-2]
+        if weights is not None:
+            chunk = _factored_chunk(w, n_w, 8 * n_nops * d * d,
+                                    ctx.budget_bytes)
+            cg = g.conj()[..., None, :, :, :]             # (1, a, k, l)
+        else:
+            # per segment the four (n_w, A, d^2) products of the cotangent
+            # and the stacked tables' products; per step the cotangent's
+            # o-major copy
+            chunk = _factored_chunk(w, n_w, (4 * d * d + 4 * (2 + _SO_SMALL_K))
+                                    * A, ctx.budget_bytes,
+                                    fixed=n_w * A * A)
+            cg = _perm_tail(g.conj(), 4, 0, 2, 1, 3).reshape(
+                *lead, 1, n_w, A, A)                      # (o, A, B)
+        grads = []
+        for start in range(0, G, chunk):
+            sl = slice(start, start + chunk)
+            w_c, v_c, n_c, b_c = (w[..., sl, :], v[..., sl, :, :],
+                                  n_t[..., sl, :, :], b_t[..., sl, :, :, :])
+            nob = _noise_basis_products(n_c, b_c)         # (g, a, k, ij)
+            slots = _factored_slope_stacks(omega, w_c, dt[..., sl])
+            if weights is not None:
+                dell1, dell2 = (_weighted_lattice(*slot, weights)
+                                for slot in slots)
+                w_mat = (cg @ nob) @ dell1.mT + cg.mT @ (nob @ dell2)
+            else:
+                w_mat = _cross_slope_coeff(cg, nob.flatten(-3, -2),
+                                           *slots).unflatten(
+                    -2, (n_nops, n_basis))
+            grads.append(_degenerate_grad(_incomplete_coeff(w_mat, n_c, b_c),
+                                          w_c, v_c))
+        return (torch.cat(grads, -3),) + (None,) * 8
+
+
+def _cross_slope_coeff(cg, nob, slot1, slot2) -> torch.Tensor:
+    r"""W[g, A, pq] of :func:`_incomplete_coeff` on F^(2)'s route: with
+    the cotangent cg[o, A, B] (conjugated) and N = *nob* (..., g, A, d^2),
+    M = cg N (the right factor) and M' = cg^T N (the left factor),
+
+        W[A, ij] += sum_{o, mn} dI_1[o, ij, mn] M[o, A, mn],
+        W[B, mn] += sum_{o, ij} M'[o, B, ij] dI_2[o, ij, mn],
+
+    each reduced through the separable tables of the slot."""
+    nob = nob[..., None, :, :]
+    m_right, m_left = cg @ nob, cg.mT @ nob               # (g, o, A, d^2)
+
+    left, right, zterms = slot1
+    rm = _mm_real(m_right, right.movedim(-3, -1))         # (g, o, A, t)
+    out = rm.movedim(-1, -3).flatten(-3, -2).mT @ left.flatten(-3, -2)
+    for zt, rho in zterms:
+        out = out + (m_right * rho[..., :, None, :]).sum(-3) @ zt.mT
+
+    left, right, zterms = slot2
+    ml = m_left @ left.movedim(-3, -1)                    # (g, o, B, t)
+    out = out + _mm_real(ml.movedim(-1, -3).flatten(-3, -2).mT,
+                         right.flatten(-3, -2))
+    for zt, rho in zterms:
+        out = out + ((m_left @ zt[..., None, :, :])
+                     * rho[..., :, None, :]).sum(-3)
+    return out
+
+
+def _incomplete_coeff(w_mat, n_t, b_t) -> torch.Tensor:
+    """The coefficient (..., g, d, d) of D_pq (:func:`_degenerate_grad`)
+    of sum_{a, k, p, q} W[g, a, k, (p q)] [D, Bbar_a]_pq Cbar_k,qp, from
+    W (..., g, n_nops, n_b, d^2), n_t (..., n_nops, g, d, d) and b_t
+    (..., g, n_b, d, d)."""
+    d = n_t.shape[-1]
+    z = torch.einsum('...gakpq,...gkqp->...gapq', w_mat.unflatten(-1, (d, d)),
+                     b_t)
+    x = n_t.movedim(-4, -3)                               # (g, a, p, q)
+    return (z @ x.mT - x.mT @ z).sum(-3)
+
+
+def _degenerate_incomplete_steps(h, eigvals, eigvecs, n_opers_transformed,
+                                 basis_transformed, omega, dt,
+                                 weights: Optional[torch.Tensor] = None,
+                                 budget_bytes: Optional[int] = None):
+    """The :class:`_DegenerateIncompleteSteps` term of the diagonal
+    shifts (*weights* given) or of F^(2) of Hamiltonians *h* with
+    eigendecomposition (eigvals, eigvecs), to be added to them; None
+    where no gradient reaches *h* or no eigenspace is degenerate."""
+    if not _reaches_degenerate(h, eigvals):
+        return None
+    return _DegenerateIncompleteSteps.apply(
+        h, eigvals.detach(), eigvecs.detach(), n_opers_transformed.detach(),
+        basis_transformed.detach(), omega.detach(), dt.detach(),
+        None if weights is None else weights.detach(), budget_bytes)
 
 
 # -----------------------------------------------------------------------------

@@ -248,14 +248,16 @@ def test_expm_matches_scipy(n):
                                        atol=bound * np.abs(want).max())
 
 
-def _degenerate_pulse():
+def _degenerate_pulse(eps=0.0):
     """A d = 2 pulse (Pauli basis, X/2 and Y/2 controls, X/2 and Z/2
     noise, 4 segments) whose segment 1 has zero amplitude: H = 0 there,
-    one doubly degenerate eigenspace; its arrays and basis."""
+    one doubly degenerate eigenspace; with *eps* its X amplitude there is
+    *eps*, which splits the eigenspace by *eps*.  Its arrays and basis."""
     rng = np.random.default_rng(12)
     X, Y, Z = fft.util.paulis[1:]
     coeffs = rng.standard_normal((2, 4))
     coeffs[:, 1] = 0.0
+    coeffs[0, 1] = eps
     pulse = fft.PulseSequence(
         [[X / 2, coeffs[0], 'X'], [Y / 2, coeffs[1], 'Y']],
         [[X / 2, np.ones(4), 'X'], [Z / 2, rng.random(4), 'Z']],
@@ -263,29 +265,89 @@ def _degenerate_pulse():
     return functional.make_pulse_arrays(pulse), pulse.basis
 
 
+def _partially_degenerate_pulse():
+    """A d = 4 pulse (two-qubit Pauli basis, XI/2, IY/2 and ZZ/4
+    controls, ZI/2 and IX/2 noise, 4 segments) whose segment 2 is driven
+    by XI alone: two twofold eigenvalues there, the other segments
+    non-degenerate.  Its arrays and basis."""
+    rng = np.random.default_rng(15)
+    I, X, Y, Z = fft.util.paulis
+    tensor = fft.util.tensor
+    coeffs = rng.standard_normal((3, 4))
+    coeffs[1:, 2] = 0.0
+    pulse = fft.PulseSequence(
+        [[tensor(X, I) / 2, coeffs[0], 'XI'],
+         [tensor(I, Y) / 2, coeffs[1], 'IY'],
+         [tensor(Z, Z) / 4, coeffs[2], 'ZZ']],
+        [[tensor(Z, I) / 2, np.ones(4), 'ZI'],
+         [tensor(I, X) / 2, rng.random(4), 'IX']],
+        1 - 0.5 * rng.random(4), basis=fft.Basis.pauli(2), device='cpu')
+    return functional.make_pulse_arrays(pulse), pulse.basis
+
+
+def _batched(p):
+    """A batch of two: *p* and *p* with its controls scaled by 0.9."""
+    scales = torch.tensor([1.0, 0.9])[:, None, None]
+    return p._replace(c_coeffs=scales * p.c_coeffs,
+                      n_coeffs=p.n_coeffs.expand(2, -1, -1),
+                      dt=p.dt.expand(2, -1))
+
+
+def _etm_loss(p, basis, spectrum, omega, second_order, weights,
+              budget_bytes=None):
+    """A weighted sum of the ETM(s) of *p* as a function of c_coeffs:
+    ``error_transfer_matrix`` of a pulse, ``batched_error_transfer_matrix``
+    of a batch, ``_etm_core`` (their body) with a memory budget."""
+    call = (functional.batched_error_transfer_matrix if p.c_coeffs.ndim == 3
+            else functional.error_transfer_matrix)
+
+    def loss(c):
+        q = p._replace(c_coeffs=c)
+        if budget_bytes is None:
+            etm = call(q, spectrum, omega, basis, second_order)
+        else:
+            etm = functional._etm_core(q, spectrum, torch.as_tensor(omega),
+                                       basis, second_order, budget_bytes)
+        return (etm * weights).sum()
+    return loss
+
+
+def _etm_grad(loss, c_coeffs):
+    c = c_coeffs.clone().requires_grad_(True)
+    grad, = torch.autograd.grad(loss(c), c)
+    return grad
+
+
+def _against_central(loss, c_coeffs, direction, h=1e-6):
+    """(autograd directional derivative, central difference at *h*)."""
+    got = (_etm_grad(loss, c_coeffs) * direction).sum()
+    with torch.no_grad():
+        central = (loss(c_coeffs + h * direction)
+                   - loss(c_coeffs - h * direction)) / (2 * h)
+    return got, central
+
+
 @pytest.mark.parametrize('entry', ['functional', 'batched'])
 @pytest.mark.parametrize('second_order', [False, True])
 def test_etm_gradient_at_degenerate_spectrum(second_order, entry):
     """Autograd through the functional ETMs at a degenerate Hamiltonian
-    (the H = 0 segment of :func:`_degenerate_pulse`, 64 frequencies).
-    First order: the directional derivative of a weighted sum of the ETM
-    along a seeded direction in c_coeffs is within 1e-6 relative of
-    central differences at h = 1e-6 (measured 2e-10 to 1.3e-8), for a
-    diagonal spectrum (the folded decay amplitudes) and a cross-spectrum
-    (the integrand), both 30 times those of the tests above so that the
-    differences' rounding (~eps/h of the ETM's unit entries) stays far
-    below the bound; without the degenerate-eigenspace term of the
-    control matrix it is 7.5e-2 to 1.37 off.
-    Second order: a call through which a gradient can reach the
-    degenerate H raises ValueError (the shifts' terms inside degenerate
-    eigenspaces have no backward).  The forward values with requires_grad
-    equal those without, bit for bit."""
+    (the H = 0 segment of :func:`_degenerate_pulse`, 64 frequencies): the
+    directional derivative of a weighted sum of the ETM along a seeded
+    direction in c_coeffs is within 1e-6 relative of central differences
+    at h = 1e-6, for a diagonal spectrum (the folded decay amplitudes and
+    shifts) and a cross-spectrum (the integrand and F^(2) through
+    ``_second_order_total``), both 30 times those of the tests above so
+    that the differences' rounding (~eps/h of the ETM's unit entries)
+    stays far below the bound.  Measured: first order 2e-10 to 1.3e-8,
+    7.5e-2 to 1.37 off without the degenerate-eigenspace term of the
+    control matrix; second order 7e-12 to 2.3e-9, 0.34 to 0.52 (of the
+    largest gradient entry) off without the degenerate-eigenspace terms
+    of the per-step control matrices and of the incomplete steps.  The
+    forward values with requires_grad equal those without, bit for
+    bit."""
     p, basis = _degenerate_pulse()
     if entry == 'batched':
-        scales = torch.tensor([1.0, 0.9])[:, None, None]
-        p = p._replace(c_coeffs=scales * p.c_coeffs,
-                       n_coeffs=p.n_coeffs.expand(2, -1, -1),
-                       dt=p.dt.expand(2, -1))
+        p = _batched(p)
         call = functional.batched_error_transfer_matrix
     else:
         call = functional.error_transfer_matrix
@@ -296,27 +358,88 @@ def test_etm_gradient_at_degenerate_spectrum(second_order, entry):
         spectrum = 30 * _spectrum(kind, omega)
         weights = torch.tensor(rng.standard_normal(
             (*p.c_coeffs.shape[:-2], 4, 4)))
-
-        def loss(c):
-            return (call(p._replace(c_coeffs=c), spectrum, omega, basis,
-                         second_order) * weights).sum()
-
         plain = call(p, spectrum, omega, basis, second_order)
         c = p.c_coeffs.clone().requires_grad_(True)
         with torch.no_grad():
             assert torch.equal(call(p._replace(c_coeffs=c), spectrum, omega,
                                     basis, second_order), plain)
-        if second_order:
-            with pytest.raises(ValueError, match='degenerate'):
-                loss(c)
-            continue
         assert torch.equal(call(p._replace(c_coeffs=c), spectrum, omega,
-                                basis).detach(), plain)
-        grad, = torch.autograd.grad(loss(c), c)
-        h = 1e-6
-        with torch.no_grad():
-            central = (loss(p.c_coeffs + h * direction)
-                       - loss(p.c_coeffs - h * direction)) / (2 * h)
-        got = (grad * direction).sum()
+                                basis, second_order).detach(), plain)
+        got, central = _against_central(
+            _etm_loss(p, basis, spectrum, omega, second_order, weights),
+            p.c_coeffs, direction)
         assert abs(got - central) <= 1e-6 * abs(central), (kind, got,
                                                           central)
+
+
+@pytest.mark.parametrize('kind', ['shared', 'cross'])
+def test_second_order_etm_gradient_lifted_degeneracy(kind):
+    """An oracle independent of finite differences: split the H = 0
+    segment of :func:`_degenerate_pulse` by eps = 1e-4, 1e-5, 1e-6 (gaps
+    far above ``numeric._DEGENERATE_GAP``, so plain autograd is exact
+    there and no degenerate-eigenspace term is built); the second-order
+    gradient there approaches the one at eps = 0 linearly: |g(eps) -
+    g(0)| / eps (relative to the largest entry of g(0)) is the same at the
+    three gaps within 1e-3 relative (measured 2.3e-5: the eps^2 term),
+    0.44 (shared) and 0.33 (cross).  A gradient without the new terms
+    would stay ~0.5 away."""
+    omega = np.geomspace(0.1, 30, 64)
+    rng = np.random.default_rng(13)
+    weights = torch.tensor(rng.standard_normal((4, 4)))
+    spectrum = 30 * _spectrum(kind, omega)
+
+    def grad(eps):
+        p, basis = _degenerate_pulse(eps)
+        return _etm_grad(_etm_loss(p, basis, spectrum, omega, True, weights),
+                         p.c_coeffs)
+
+    at_zero = grad(0.0)
+    scale = at_zero.abs().max()
+    slopes = [((grad(eps) - at_zero).abs().max() / scale / eps).item()
+              for eps in (1e-4, 1e-5, 1e-6)]
+    assert 0.1 < slopes[0] < 1.0, slopes
+    np.testing.assert_allclose(slopes, slopes[0], rtol=1e-3, atol=0)
+
+
+@pytest.mark.parametrize('kind', ['shared', 'cross'])
+def test_second_order_etm_gradient_partial_degeneracy(kind):
+    """d = 4 with two twofold eigenvalues on one segment
+    (:func:`_partially_degenerate_pulse`): the second-order directional
+    derivative, both entry points, within 1e-6 relative of central
+    differences at h = 1e-6 (measured 3.4e-10 to 5.0e-9)."""
+    p, basis = _partially_degenerate_pulse()
+    _, degenerate = numeric._eig_gaps(torch.linalg.eigvalsh(
+        torch.einsum('jmn,jg->gmn', p.c_opers, p.c_coeffs.to(torch.cdouble))))
+    assert degenerate.sum((-1, -2)).tolist() == [4, 4, 8, 4]
+    omega = np.geomspace(0.1, 30, 48)
+    rng = np.random.default_rng(16)
+    for batch in (p, _batched(p)):
+        direction = torch.tensor(rng.standard_normal(batch.c_coeffs.shape))
+        weights = torch.tensor(rng.standard_normal(
+            (*batch.c_coeffs.shape[:-2], 16, 16)))
+        got, central = _against_central(
+            _etm_loss(batch, basis, 30 * _spectrum(kind, omega), omega, True,
+                      weights), batch.c_coeffs, direction)
+        assert abs(got - central) <= 1e-6 * abs(central), (got, central)
+
+
+@pytest.mark.parametrize('kind', ['shared', 'cross'])
+def test_second_order_etm_gradient_in_segment_chunks(kind):
+    """A memory budget of one byte runs the shifts, F^(2) and the
+    backward of their degenerate-eigenspace term in chunks of one
+    segment: the second-order gradient at :func:`_degenerate_pulse` is
+    that of one chunk within 1e-13 of its largest entry."""
+    p, basis = _degenerate_pulse()
+    omega = np.geomspace(0.1, 30, 64)
+    eigvals = torch.linalg.eigvalsh(torch.einsum(
+        'jmn,jg->gmn', p.c_opers, p.c_coeffs.to(torch.cdouble)))
+    assert numeric._factored_chunk(eigvals, len(omega), 0, 1) == 1
+    assert numeric._factored_chunk(eigvals, len(omega), 0) == 4
+    weights = torch.tensor(np.random.default_rng(17).standard_normal((4, 4)))
+    spectrum = 30 * _spectrum(kind, omega)
+    whole, chunked = (
+        _etm_grad(_etm_loss(p, basis, spectrum, omega, True, weights,
+                            budget_bytes), p.c_coeffs)
+        for budget_bytes in (None, 1))
+    np.testing.assert_allclose(chunked.numpy(), whole.numpy(), rtol=0,
+                               atol=1e-13 * whole.abs().max().item())
