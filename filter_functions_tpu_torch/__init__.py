@@ -19,7 +19,9 @@ route, or in closed form from :mod:`.gradient`
 noise spectrum from measured infidelities; :mod:`.plotting` (imported on
 its own, it needs matplotlib) draws pulses and filter functions.
 :mod:`.parallel` splits the frequency grid and the pulse batch over a
-``torch.distributed`` device mesh and runs GRAPE on it.
+``torch.distributed`` device mesh and runs GRAPE on it.  :mod:`.tracing`
+holds the spans a profiler records and the counters of the host's reads
+of the device.
 
 Complex values are ``torch.complex128`` and reals ``torch.float64``;
 every computed value lives on an explicit device.  The package imports
@@ -27,7 +29,7 @@ every computed value lives on an explicit device.  The package imports
 """
 from . import (analytic, basis, config, convert, functional, gradient,
                models, numeric, parallel, pulse_sequence, sequencing,
-               spectroscopy, superoperator, types, util)
+               spectroscopy, superoperator, tracing, types, util)
 from .basis import Basis
 from .functional import PulseArrays, batched_infidelity, control_matrix
 from .gradient import infidelity_derivative
@@ -47,4 +49,4 @@ __all__ = ['Basis', 'PulseArrays', 'PulseSequence', 'batched_infidelity',
            'qft_pulse_arrays', 'qft_pulse_sequence', 'remap', 'analytic',
            'basis', 'config', 'convert', 'functional', 'gradient', 'models',
            'numeric', 'parallel', 'pulse_sequence', 'sequencing',
-           'spectroscopy', 'superoperator', 'types', 'util']
+           'spectroscopy', 'superoperator', 'tracing', 'types', 'util']

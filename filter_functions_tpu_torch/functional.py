@@ -21,7 +21,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from . import config, numeric, util
+from . import config, numeric, tracing, util
 from .basis import Basis
 
 __all__ = ['PulseArrays', 'make_pulse_arrays', 'control_matrix',
@@ -74,10 +74,11 @@ def _prep(p: PulseArrays, c_coeffs: torch.Tensor, n_coeffs: torch.Tensor,
     these coefficients and durations (any leading batch axes): (eigvals,
     step terms, the degenerate-eigenspace term of the control matrix,
     :func:`.numeric._degenerate_control_matrix`, or None)."""
-    ham, eigvals, eigvecs, terms = _diagonalized(p, c_coeffs, n_coeffs, dt,
-                                                 omega)
-    return eigvals, terms, numeric._degenerate_control_matrix(
-        ham, eigvals, eigvecs, terms, omega, dt)
+    with tracing.span('ff.prep'):
+        ham, eigvals, eigvecs, terms = _diagonalized(p, c_coeffs, n_coeffs,
+                                                     dt, omega)
+        return eigvals, terms, numeric._degenerate_control_matrix(
+            ham, eigvals, eigvecs, terms, omega, dt)
 
 
 def _contract(terms: Tuple[torch.Tensor, ...],
@@ -110,13 +111,14 @@ def _infid_contract(terms: Tuple[torch.Tensor, ...], spectrum: torch.Tensor,
     Returns (infidelity (..., n_nops), ratio (...)), the ratio being the
     quantization statistic of the deep factored contraction (0 off that
     route)."""
-    ctrl, ratio = _contract(terms, degenerate, escalation, contract)
-    diag = (ctrl.real * ctrl.real + ctrl.imag * ctrl.imag).sum(-2)
-    if weights is None:
-        integral = util.integrate(diag * spectrum, omega)
-    else:
-        integral = (diag * spectrum * weights).sum(-1)
-    return integral / (2 * math.pi * d), ratio
+    with tracing.span('ff.contract'):
+        ctrl, ratio = _contract(terms, degenerate, escalation, contract)
+        diag = (ctrl.real * ctrl.real + ctrl.imag * ctrl.imag).sum(-2)
+        if weights is None:
+            integral = util.integrate(diag * spectrum, omega)
+        else:
+            integral = (diag * spectrum * weights).sum(-1)
+        return integral / (2 * math.pi * d), ratio
 
 
 def _escalates(ratios: torch.Tensor, escalation_tol: float,
@@ -131,7 +133,9 @@ def _escalates(ratios: torch.Tensor, escalation_tol: float,
     worst = ratios.max()
     if ratio_max is not None:
         worst = ratio_max(worst)
-    return bool(worst > escalation_tol)
+    escalated = bool(worst > escalation_tol)
+    tracing.counts['sync.escalation'] += 1
+    return tracing.decision(escalated)
 
 
 def control_matrix(p: PulseArrays, omega: torch.Tensor,

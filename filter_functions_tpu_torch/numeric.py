@@ -26,7 +26,7 @@ from warnings import warn
 import numpy as np
 import torch
 
-from . import config, util
+from . import config, tracing, util
 from .basis import Basis
 from .ops import ozaki
 
@@ -728,7 +728,9 @@ def _reaches_degenerate(h, eigvals) -> bool:
     if not (torch.is_grad_enabled() and h.requires_grad):
         return False
     _, degenerate = _eig_gaps(eigvals.detach())
-    return bool((degenerate.sum((-1, -2)) > eigvals.shape[-1]).any())
+    reached = bool((degenerate.sum((-1, -2)) > eigvals.shape[-1]).any())
+    tracing.counts['sync.degenerate'] += 1
+    return reached
 
 
 def _degenerate_control_matrix(h, eigvals, eigvecs, terms, omega, dt,
@@ -864,9 +866,12 @@ def calculate_control_matrix_from_scratch(
             n_opers, n_coeffs[:, sl], dt[sl], t[sl])
         contrib, ratio = _ctrlmat_contract(n_t, integral, b_t, ph, 'stat',
                                            mode)
-        if mode == 'ozaki' and 0 < config.ESCALATION_TOL < ratio.item():
-            contrib, _ = _ctrlmat_contract(n_t, integral, b_t, ph, 'force',
-                                           mode)
+        if mode == 'ozaki' and config.ESCALATION_TOL > 0:
+            escalated = config.ESCALATION_TOL < ratio.item()
+            tracing.counts['sync.ctrlmat_escalation'] += 1
+            if tracing.decision(escalated):
+                contrib, _ = _ctrlmat_contract(n_t, integral, b_t, ph,
+                                               'force', mode)
         result = result + contrib
     return result
 
@@ -2101,6 +2106,7 @@ def _expm(a: torch.Tensor) -> torch.Tensor:
     synchronizes with the device once.
     """
     norm = a.abs().sum(-2).amax().item()
+    tracing.counts['sync.expm'] += 1
     squarings = max(0, math.ceil(math.log2(norm))) if norm > 0 else 0
     a = a / 2.0**squarings
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)

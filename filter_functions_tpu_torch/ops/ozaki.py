@@ -23,7 +23,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from .. import config
+from .. import config, tracing
 from . import dword
 
 #: int8 digit width: 7-bit digits keep every K <= 2^17 slice product sum
@@ -193,11 +193,12 @@ def _outer_contract(pr, pi, ps, outs, slice_bits):
         out = _matmul_from_slices(a_sl[:n], d_sl[:n], slice_bits)
         return out * a_sc * d_sc
 
-    p1 = mm(pr, outs[0])
-    p2 = mm(pi, outs[1])
-    p3 = mm(ps, outs[2])
-    # Gauss: re = Pr Dr - Pi Di; im = (Pr + Pi)(Dr + Di) - p1 - p2
-    return p1 - p2, p3 - p1 - p2
+    with tracing.span('ff.ozaki.products'):
+        p1 = mm(pr, outs[0])
+        p2 = mm(pi, outs[1])
+        p3 = mm(ps, outs[2])
+        # Gauss: re = Pr Dr - Pi Di; im = (Pr + Pi)(Dr + Di) - p1 - p2
+        return p1 - p2, p3 - p1 - p2
 
 
 def ozaki_matmul_c_outer(p_re: torch.Tensor, p_im: torch.Tensor,

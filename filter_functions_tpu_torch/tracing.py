@@ -1,0 +1,83 @@
+"""Spans and counters of the port, for reading a profiled run.
+
+Spans are ``torch.profiler.record_function`` ranges, opened only while
+a profiler records (``torch.autograd._profiler_enabled()``); otherwise
+:func:`span` does nothing beyond that check.  Recorded, they are user
+annotations on the clock of the profiler's device activities, so a
+device operation belongs to the span whose host interval launched it,
+and a device gap to the span the host was in.  A span's parent is the
+span it nests in on the host thread.
+
+=====================  ==================================================
+Span                   Where
+=====================  ==================================================
+``ff.prep``            :func:`.functional._prep`: the Hamiltonians, the
+                       eigendecomposition, the propagators, the step terms
+                       and the degenerate-eigenspace term with its check
+``ff.contract``        :func:`.functional._infid_contract`: the
+                       control-matrix contraction (the Ozaki route with
+                       ``dword_digits``, the quantization ratio) and the
+                       frequency integral
+``ff.ozaki.products``  :func:`.ops.ozaki._outer_contract`: the three Gauss
+                       products' int8 slice GEMMs and their double-single
+                       recombination
+=====================  ==================================================
+
+The backward has no span of its own: autograd opens
+``autograd::engine::evaluate_function: <Node>`` around every node
+(``_OzakiOuterBackward``, ``_EighBackward``, ...) on the same clock.
+
+:data:`counts` counts the host's reads of the device and the escalation
+decisions, each at the site that makes it, after the value is on the
+host; clear it with ``counts.clear()``.
+
+===========================  ============================================
+Counter                      Incremented by
+===========================  ============================================
+``sync.escalation``          :func:`.functional._escalates` reading the
+                             batch's largest quantization ratio
+``sync.degenerate``          :func:`.numeric._reaches_degenerate` reading
+                             whether an eigenspace is degenerate
+``sync.ctrlmat_escalation``  :func:`.numeric.
+                             calculate_control_matrix_from_scratch`
+                             reading a chunk's quantization ratio
+``sync.expm``                :func:`.numeric._expm` reading the norm
+``escalation.decisions``     each of the two escalation decisions above
+``escalation.escalated``     each decision that recomputes at full
+                             precision
+===========================  ============================================
+
+The port's two older counters stay in their modules:
+:data:`.ops.dword.launches` (launches of the CUDA kernel) and
+:data:`.parallel.sharding.collectives` (collectives of the sharded
+entry points).
+"""
+from __future__ import annotations
+
+import contextlib
+from collections import Counter
+
+import torch
+
+__all__ = ['span', 'counts', 'decision']
+
+#: The counters of the table above, by name.
+counts: Counter = Counter()
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named *name* while a profiler records, else a
+    context that does nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def decision(escalated: bool) -> bool:
+    """Counts an escalation decision and returns it."""
+    counts['escalation.decisions'] += 1
+    if escalated:
+        counts['escalation.escalated'] += 1
+    return escalated

@@ -1,0 +1,187 @@
+"""The port's spans and counters (filter_functions_tpu_torch.tracing):
+the spans appear, nested as documented, only under a profiler and
+change no value; the counters count each read of the device and each
+escalation decision at its site."""
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+from filter_functions_tpu_torch import functional, numeric, tracing
+from filter_functions_tpu_torch.basis import Basis
+
+D, G, BATCH, CHUNK = 4, 80, 4, 2     # K = G d^2 = 1280: the deep route
+OZAKI_NODE = 'autograd::engine::evaluate_function: _OzakiOuterBackward'
+
+
+def _herm(n, rng):
+    a = rng.standard_normal((n, D, D)) + 1j * rng.standard_normal((n, D, D))
+    h = a + a.conj().transpose(0, 2, 1)
+    return h - np.trace(h, axis1=1, axis2=2)[:, None, None] * np.eye(D) / D
+
+
+@pytest.fixture(scope='module')
+def pulse():
+    """Random d = 4 pulses of 80 segments, 2 control and 1 noise
+    operators, and 11 frequencies with a 1/omega spectrum."""
+    rng = np.random.default_rng(17)
+    p = functional.PulseArrays(
+        torch.tensor(_herm(2, rng)),
+        torch.tensor(rng.standard_normal((BATCH, 2, G))),
+        torch.tensor(_herm(1, rng)),
+        torch.tensor(rng.random((BATCH, 1, G))),
+        torch.tensor(1 - rng.random((BATCH, G))),
+        Basis.ggm(D).tensor('cpu'))
+    omega = torch.tensor(np.linspace(0.1, 10, 11))
+    return p, 1e-3 / omega, omega
+
+
+def _profiled(fn):
+    """fn() under a CPU profiler: (its value, the kineto events)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+    return out, list(prof.profiler.kineto_results.events())
+
+
+def _ranges(events, name):
+    return sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in events if e.name() == name)
+
+
+@contextlib.contextmanager
+def _delta():
+    """The changes of tracing.counts inside the block."""
+    before = dict(tracing.counts)
+    out = {}
+    yield out
+    for key in set(tracing.counts) | set(before):
+        if tracing.counts[key] != before.get(key, 0):
+            out[key] = tracing.counts[key] - before.get(key, 0)
+
+
+def test_span_is_inert_without_a_profiler():
+    assert not torch.autograd._profiler_enabled()
+    assert isinstance(tracing.span('ff.test'), contextlib.nullcontext)
+
+
+def test_span_is_a_range_under_a_profiler():
+    def fn():
+        assert torch.autograd._profiler_enabled()
+        with tracing.span('ff.test'):
+            return torch.ones(3).sum()
+    _, events = _profiled(fn)
+    assert len(_ranges(events, 'ff.test')) == 1
+
+
+def test_spans_of_the_batched_infidelity(pulse):
+    """Per chunk one ff.prep and one ff.contract, in turn, with one
+    ff.ozaki.products inside each ff.contract; the infidelities bit for
+    bit those without a profiler."""
+    p, spectrum, omega = pulse
+
+    def fn():
+        return functional.batched_infidelity(p, spectrum, omega,
+                                             chunk_size=CHUNK,
+                                             contract='ozaki')
+    off = fn()
+    on, events = _profiled(fn)
+    assert torch.equal(on, off)
+    prep = _ranges(events, 'ff.prep')
+    contract = _ranges(events, 'ff.contract')
+    products = _ranges(events, 'ff.ozaki.products')
+    chunks = BATCH // CHUNK
+    assert len(prep) == len(contract) == len(products) == chunks
+    for k in range(chunks):
+        assert prep[k][1] <= contract[k][0]
+        assert contract[k][0] <= products[k][0] <= products[k][1] \
+            <= contract[k][1]
+        if k + 1 < chunks:
+            assert contract[k][1] <= prep[k + 1][0]
+
+
+def test_backward_shows_the_ozaki_node(pulse):
+    """Autograd's own range around the factored product's backward
+    node, one per chunk; the gradient bit for bit that without a
+    profiler."""
+    p, spectrum, omega = pulse
+
+    def fn():
+        cc = p.c_coeffs.clone().requires_grad_(True)
+        infid = functional.batched_infidelity(
+            p._replace(c_coeffs=cc), spectrum, omega, chunk_size=CHUNK,
+            contract='ozaki')
+        return torch.autograd.grad(infid.sum(), cc)[0]
+    off = fn()
+    on, events = _profiled(fn)
+    assert torch.equal(on, off)
+    assert len(_ranges(events, OZAKI_NODE)) == BATCH // CHUNK
+
+
+@pytest.mark.parametrize('tol, decisions, escalated', [
+    (None, 1, 0), (1e-30, 1, 1), (0, 0, 0)],
+    ids=['default', 'tiny', 'off'])
+def test_escalation_counts(pulse, tol, decisions, escalated):
+    """One read and one decision per call (none with the check off);
+    a tiny threshold escalates."""
+    p, spectrum, omega = pulse
+    kw = {} if tol is None else {'escalation_tol': tol}
+    with _delta() as got:
+        functional.batched_infidelity(p, spectrum, omega, chunk_size=CHUNK,
+                                      contract='ozaki', **kw)
+    want = {'sync.escalation': decisions,
+            'escalation.decisions': decisions,
+            'escalation.escalated': escalated}
+    assert got == {k: v for k, v in want.items() if v}
+
+
+@pytest.mark.parametrize('grad', [False, True], ids=['no_grad', 'grad'])
+@pytest.mark.parametrize('degenerate', [False, True],
+                         ids=['distinct', 'degenerate'])
+def test_degenerate_check_counts(pulse, grad, degenerate):
+    """The degenerate-eigenspace check reads the device once per chunk
+    where a gradient reaches the Hamiltonians, whether or not a
+    segment is degenerate; without one it reads nothing."""
+    p, spectrum, omega = pulse
+    cc = p.c_coeffs.clone()
+    if degenerate:
+        cc[..., :5] = 0           # H = 0: one eigenspace of dimension d
+    cc.requires_grad_(grad)
+    with _delta() as got:
+        infid = functional.batched_infidelity(
+            p._replace(c_coeffs=cc), spectrum, omega, chunk_size=CHUNK,
+            contract='ozaki')
+    assert torch.isfinite(infid).all()
+    assert got.get('sync.degenerate', 0) == (BATCH // CHUNK if grad else 0)
+    assert got['sync.escalation'] == 1
+
+
+@pytest.mark.parametrize('tol, escalated', [(None, 0), (1e-30, 1)],
+                         ids=['default', 'tiny'])
+def test_control_matrix_escalation_counts(pulse, monkeypatch, tol,
+                                          escalated):
+    """calculate_control_matrix_from_scratch on the Ozaki route reads
+    each chunk's ratio once and decides once."""
+    p, _, omega = pulse
+    if tol is not None:
+        monkeypatch.setattr(numeric.config, 'ESCALATION_TOL', tol)
+    w, v, props = numeric.diagonalize(torch.einsum(
+        'jmn,jg->gmn', p.c_opers, p.c_coeffs[0].to(p.c_opers.dtype)),
+        p.dt[0])
+    with _delta() as got:
+        numeric.calculate_control_matrix_from_scratch(
+            w, v, props, omega, p.basis, p.n_opers, p.n_coeffs[0], p.dt[0],
+            contract='ozaki', budget_bytes=1 << 30)
+    want = {'sync.ctrlmat_escalation': 1, 'escalation.decisions': 1,
+            'escalation.escalated': escalated}
+    assert got == {k: v for k, v in want.items() if v}
+
+
+@pytest.mark.parametrize('calls', [1, 3])
+def test_expm_counts(calls):
+    a = torch.tensor(np.random.default_rng(0).standard_normal((2, 3, 3)))
+    with _delta() as got:
+        for _ in range(calls):
+            numeric._expm(a)
+    assert got == {'sync.expm': calls}
