@@ -19,10 +19,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    batch 1 (phase 10a's crosstalk rows).  Times the
    flagship call of both beside its memory bound and the card's name and
    power limit.
+3b. slice products: ``ops.ozaki._outer_contract`` on the card (one
+   launch of the ``ozaki_products`` kernel) against the composite
+   ``_outer_contract_plain`` on the card, bit-exact, at the cells' chunk
+   (batch 2, M = 1000, K = 3328, N = 4608) and at the CPMG-300 train's
+   shape (batch 1, M = 100, K = 2404, N = 4), on random 7-bit digits and
+   power-of-two scales from a seeded CUDA generator.
+   Times the chunk's call beside its bound (its int8 operations at
+   1979 T/s), the composite's time and ``torch._int_mm``'s 90 GEMMs of
+   the same slice pairs alone (``library_ms``; the port no longer calls
+   them on CUDA).
 4. main path: ``functional.batched_infidelity`` on the 4-qubit QFT pulse
    at 1000 frequencies, batch 32 in chunks of 2 (bench.py's flagship
    inputs), through the default CUDA route (the factored Ozaki route).
-   Checks that the kernel launched, that every value is finite, that
+   Checks that ``dword_digits`` and ``ozaki_products`` launched once a
+   chunk each (16), that every value is finite, that
    the escalation statistic stays below its threshold, that row 0 is
    within 1e-10 of the native complex128 route on the card, and that
    the card's native row 0 is within 1e-12 of the CPU's.
@@ -290,7 +301,11 @@ After phases 3, 5, 6, 7a, 7b, 7c, 7d, 8, 9, 10, 11 (with 12b), 12a, 12c and
 13 a line ``phase time:``
 gives the host-clock seconds since the one before.  Before the last line
 come the card's label and the kernels' JSON record, in that order; the
-last line is
+record counts each kernel's launches by path, from phase 4 on, in the
+calls each phase checks (a path that launches is timed outside its
+count).  Every count is of both kernels:
+wherever a path's launches are read, ``ozaki_products``' count must equal
+``dword_digits``' (:func:`_launches`).  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -315,9 +330,12 @@ from filter_functions_tpu_torch import (analytic, basis, config, convert,
                                         entry, functional, numeric, parallel,
                                         spectroscopy, superoperator, util)
 from filter_functions_tpu_torch.models import dd, exchange, qft, rb
-from filter_functions_tpu_torch.ops import _build, dword
+from filter_functions_tpu_torch.ops import _build, dword, ozaki, products
 from filter_functions_tpu_torch.parallel import ranks as parallel_ranks
 from filter_functions_tpu_torch.parallel import sharding
+
+sys.path.append(str(Path(__file__).resolve().parent / 'tests'))
+from torch_testutil import products_inputs  # noqa: E402
 
 N_OMEGA = 1000
 BATCH = 32
@@ -335,6 +353,12 @@ KERNEL_SHAPES = {'small': (512, 3, 128, 4, 7, 1),
 #: There is no published int32 rate, so a kernel's bound here is its
 #: memory floor.
 HBM_BYTES_PER_S = 3.35e12
+#: The H100 SXM's dense int8 tensor-core rate (NVIDIA's data sheet),
+#: operations/s: the bound of the slice products.
+INT8_OPS_PER_S = 1.979e15
+#: ozaki_products shapes: (batch, M, K, N, slice_bits).
+PRODUCTS_SHAPES = {'chunk': (CHUNK, N_OMEGA, 3328, 4608, 7),
+                   'cpmg_300': (1, 100, 2404, 4, 7)}
 #: BASELINE.json's infidelity parity contract, held by the Ozaki route
 #: against the native one.
 PARITY = 1e-10
@@ -489,6 +513,25 @@ EXAMPLE_DIAGNOSTICS = {'cached_vs_scratch': 1e-10,
                        'gradient_rel_diff': 1e-12}
 
 
+def _reset_launches() -> None:
+    """Zeroes the launch counters of the Ozaki route's two kernels."""
+    dword.launches = 0
+    products.launches = 0
+
+
+def _launches() -> int:
+    """Kernel launches since :func:`_reset_launches`: ``dword_digits``'
+    count, checked equal to ``ozaki_products``', since every call of the
+    factored route on the card launches each once.  So each path's count
+    is both kernels'."""
+    if products.launches != dword.launches:
+        raise AssertionError(f'ozaki_products launched {products.launches} '
+                             f'times against dword_digits\' '
+                             f'{dword.launches}: not once a call of the '
+                             f'factored route')
+    return dword.launches
+
+
 def _card_label() -> str:
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -580,6 +623,56 @@ def check_kernel(device, card):
     return result
 
 
+def check_products(device, card) -> dict:
+    """Phase 3b: the slice-products kernel against the composite,
+    bit-exact; returns the chunk's kernel entry for the JSON line."""
+    result = None
+    for name, (batch, M, K, N, sb) in PRODUCTS_SHAPES.items():
+        args = products_inputs(batch, M, K, N, sb, device, seed=K)
+        want = ozaki._outer_contract_plain(*args, sb)
+        before = products.launches
+        got = ozaki._outer_contract(*args, sb)
+        torch.cuda.synchronize()
+        if products.launches - before != 1:
+            raise AssertionError(f'ozaki_products {name}: '
+                                 f'{products.launches - before} launches')
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f'ozaki_products {name}: kernel differs '
+                                 f'from the composite (max |diff| {err})')
+        print(f'products {name} batch={batch} M={M} K={K} N={N} '
+              f'slice_bits={sb}: bit-exact against the composite '
+              f'(tolerance 0), 1 launch')
+        if name != 'chunk':
+            continue
+        n = -(-30 // sb)
+        ops = 3 * batch * (n * (n + 1) // 2) * 2 * M * K * N
+        bound_ms = ops / INT8_OPS_PER_S * 1e3
+        ms = _cuda_ms(lambda: ozaki._outer_contract(*args, sb), 20)
+        plain_ms = _cuda_ms(lambda: ozaki._outer_contract_plain(*args, sb), 5)
+        pr, pi, ps, outs = args
+
+        def library():
+            for (a_sl, _), (d_sl, _) in zip((pr, pi, ps), outs):
+                for s in range(n):
+                    for i in range(s + 1):
+                        for b in range(batch):
+                            torch._int_mm(a_sl[i][b], d_sl[s - i][b])
+        library_ms = _cuda_ms(library, 5)
+        print(f'products {name}: ozaki_products {ms:.4f} ms, composite '
+              f'{plain_ms:.4f} ms, torch._int_mm GEMMs alone '
+              f'{library_ms:.4f} ms per call of {batch} pulses; int8 bound '
+              f'{bound_ms:.4f} ms, {100 * bound_ms / ms:.1f} % of it '
+              f'[{card}]')
+        result = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+                  'bound_ms': bound_ms, 'bound_by': 'int8 operations',
+                  'bound': 'compute', 'pct_of_bound': 100 * bound_ms / ms,
+                  'library_ms': library_ms,
+                  'library_note': 'torch._int_mm of the same 90 slice-pair '
+                                  'GEMMs alone, without their recombination'}
+    return result
+
+
 def _jittered(p, batch):
     """*batch* copies of the pulse *p*: row 0 as it is, the other rows
     with control coefficients scaled by 1 + 0.05 N(0, 1) from
@@ -627,23 +720,32 @@ def main() -> int:
     print(f'build: {lib.name} in {time.perf_counter() - t0:.1f} s '
           '(nvcc -Xptxas -v):')
     print(report.strip())
+    t0 = time.perf_counter()
+    lib, report = _build.build('ozaki_products')
+    print(f'build: {lib.name} in {time.perf_counter() - t0:.1f} s '
+          '(nvcc -Xptxas -v):')
+    print(report.strip())
 
-    # 3. kernel against plain version
+    # 3. kernels against plain versions
     kernel_err, kernel_ms, plain_ms, bound_ms = check_kernel(device, card)
-    lap('2-3')
+    products_entry = check_products(device, card)
+    lap('2-3b')
 
     # 4. main path
     batched, omega, spectrum = flagship_inputs(device)
-    dword.launches = 0
+    _reset_launches()
     infid = functional.batched_infidelity(batched, spectrum, omega,
                                           chunk_size=CHUNK)
     torch.cuda.synchronize()
-    launches = dword.launches
+    launches = _launches()
     route = config.contraction_mode(device)
     print(f'main path: batched_infidelity batch {BATCH} chunk {CHUNK}, '
-          f'route {route!r}, dword_digits launches {launches}')
-    if launches <= 0:
-        raise AssertionError('the main path never launched dword_digits')
+          f'route {route!r}, dword_digits and ozaki_products launches '
+          f'{launches} each')
+    if launches != BATCH // CHUNK:
+        raise AssertionError(f'the main path launched each kernel '
+                             f'{launches} times, not once a chunk '
+                             f'({BATCH // CHUNK})')
     if infid.shape != (BATCH, 18) or not torch.isfinite(infid).all():
         raise AssertionError(f'bad infidelities: shape {tuple(infid.shape)}'
                              f', finite {bool(torch.isfinite(infid).all())}')
@@ -754,28 +856,30 @@ def main() -> int:
     concat_launches.update(examples_on_card(device, card))
     lap('13')
 
+    # each path's count is both kernels' (_launches)
+    by_path = {
+        **concat_launches,
+        'functional.batched_infidelity': launches,
+        'numeric.infidelity (PulseSequence)': object_launches,
+        'numeric.error_transfer_matrix (PulseSequence)': etm_launches,
+        'functional.batched_infidelity (autograd)': grad_launches,
+        'functional.error_transfer_matrix (autograd, 7d)': etm_grad_launches,
+        'entry.entry (one call)': entry_launches}
     print(card)
     print(json.dumps({'kernels': [{
         'name': 'dword_digits', 'route': 'cuda',
         'source': 'filter_functions_tpu_torch/csrc/dword_digits.cu',
         'replaces': 'filter_functions_tpu/ops/dword_pallas.py:198',
-        'launches': launches + object_launches + etm_launches
-        + grad_launches + etm_grad_launches + entry_launches
-        + sum(concat_launches.values()),
-        'launches_by_path': {
-            **concat_launches,
-            'functional.batched_infidelity': launches,
-            'numeric.infidelity (PulseSequence)': object_launches,
-            'numeric.error_transfer_matrix (PulseSequence)': etm_launches,
-            'functional.batched_infidelity (autograd)': grad_launches,
-            'functional.error_transfer_matrix (autograd, 7d)':
-            etm_grad_launches,
-            'entry.entry (one call)': entry_launches},
+        'launches': sum(by_path.values()), 'launches_by_path': by_path,
         'max_abs_err': kernel_err, 'ms': kernel_ms, 'plain_ms': plain_ms,
         'bound_ms': bound_ms, 'bound_by': 'bytes', 'bound': 'memory',
         'pct_of_bound': 100 * bound_ms / kernel_ms, 'library_ms': None,
         'library_note': 'no single PyTorch call computes the digit '
-                        'slices'}]}))
+                        'slices'}, {
+        'name': 'ozaki_products', 'route': 'cuda',
+        'source': 'filter_functions_tpu_torch/csrc/ozaki_products.cu',
+        'replaces': None, 'launches': sum(by_path.values()),
+        'launches_by_path': by_path, **products_entry}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
@@ -789,10 +893,10 @@ def object_path(device, card, native_row0, ozaki_row0):
     omega = torch.from_numpy(np.geomspace(1e-2, 1e2, N_OMEGA)).to(device)
     spectrum = 1e-4 / omega
     torch.cuda.reset_peak_memory_stats(device)
-    dword.launches = 0
+    _reset_launches()
     infid = fft.infidelity(pulse, spectrum, omega)
     torch.cuda.synchronize()
-    launches = dword.launches
+    launches = _launches()
     print(f'object path: fft.infidelity(PulseSequence) on {pulse.device}, '
           f'dword_digits launches {launches}')
     if launches <= 0:
@@ -812,12 +916,12 @@ def object_path(device, card, native_row0, ozaki_row0):
     if not to_ozaki <= OBJECT_PARITY:
         raise AssertionError('the object path is off the functional Ozaki '
                              'route')
-    dword.launches = 0
+    _reset_launches()
     again = fft.infidelity(pulse, spectrum, omega)
     torch.cuda.synchronize()
-    if dword.launches != 0 or not torch.equal(again, infid):
+    if _launches() != 0 or not torch.equal(again, infid):
         raise AssertionError(f'the cached second call launched '
-                             f'{dword.launches} kernels or changed the '
+                             f'{_launches()} kernels or changed the '
                              'result')
     filter_function = pulse.get_filter_function(omega)
     if filter_function.shape != (18, 18, N_OMEGA) or \
@@ -845,10 +949,10 @@ def etm_flagship(device, card, infid) -> int:
     spectrum = 1e-4 / omega
     pulse = qft.qft_pulse_sequence(4, device=device)
     torch.cuda.reset_peak_memory_stats(device)
-    dword.launches = 0
+    _reset_launches()
     etm = fft.error_transfer_matrix(pulse, spectrum, omega)
     torch.cuda.synchronize()
-    launches = dword.launches
+    launches = _launches()
     peak = torch.cuda.max_memory_allocated(device)
     print(f'etm flagship: fft.error_transfer_matrix(PulseSequence) on '
           f'{pulse.device}, basis of {len(pulse.basis)}, dword_digits '
@@ -894,9 +998,9 @@ def etm_flagship(device, card, infid) -> int:
 
     def cold():
         pulse.cleanup('all')
-        dword.launches = 0
+        _reset_launches()
         fft.error_transfer_matrix(pulse, spectrum, omega)
-        if dword.launches <= 0:
+        if _launches() <= 0:
             raise AssertionError('a cold ETM call launched no kernel')
     print(f'timing: etm flagship {_median_ms(cold, N_TIMED):.4f} ms '
           f'per cold call (median of {N_TIMED}, caches cleared before '
@@ -1093,7 +1197,7 @@ def second_order_tables(device, card) -> int:
     K2 lattice, against the lattice, at 7b's inputs, at the 3-qubit QFT
     pulse and on the flagship's frequency shifts; returns the kernel's
     launches (none)."""
-    launches = dword.launches
+    launches = _launches()
 
     # (i) 7b's inputs, a diagonal and a cross-spectrum
     d, _, _, batch = SO_SHAPE
@@ -1159,7 +1263,7 @@ def second_order_tables(device, card) -> int:
     _reduced_terms_agree('7c(iii)', omega, eigvals, dt, weights, device,
                          card, 1, WIDE_LATTICE_PARITY)
 
-    launches = dword.launches - launches
+    launches = _launches() - launches
     print(f'7c: dword_digits launches {launches}')
     if launches:
         raise AssertionError('7c launched the kernel')
@@ -1198,9 +1302,9 @@ def etm_gradient(device, card) -> int:
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
-        dword.launches = 0
+        _reset_launches()
         got = derivative()
-        launches += dword.launches
+        launches += _launches()
         peak = torch.cuda.max_memory_allocated(device)
         h = ETM_GRAD_STEP
         with torch.no_grad():
@@ -1222,7 +1326,7 @@ def etm_gradient(device, card) -> int:
               f'directional derivative {got:.12e}, central differences '
               f'(h = {h}) {central:.12e}: relative {err:.3e} (bound '
               f'{ETM_GRAD_PARITY}); without the degenerate-eigenspace terms '
-              f'{without:.3e}; dword_digits launches {dword.launches}')
+              f'{without:.3e}; dword_digits launches {_launches()}')
         _check(f'7d: the {order}-order ETM gradient against central '
                'differences', err, ETM_GRAD_PARITY)
         ms = _median_ms(derivative, N_TIMED)
@@ -1237,15 +1341,15 @@ def _infidelity_grad(p, spectrum, omega, chunk_size=None, contract=None):
     coefficients, kernel launches of the forward pass, of the backward
     pass) of the pulses *p*."""
     c_coeffs = p.c_coeffs.detach().clone().requires_grad_(True)
-    dword.launches = 0
+    _reset_launches()
     infid = functional.batched_infidelity(p._replace(c_coeffs=c_coeffs),
                                           spectrum, omega, chunk_size,
                                           contract)
-    forward = dword.launches
+    forward = _launches()
     grad, = torch.autograd.grad(infid.sum(), c_coeffs)
     if grad.is_cuda:
         torch.cuda.synchronize()
-    return infid.detach(), grad, forward, dword.launches - forward
+    return infid.detach(), grad, forward, _launches() - forward
 
 
 def _rel(a, b) -> float:
@@ -1415,10 +1519,10 @@ def concat_flagship(device, card, object_infid) -> dict:
         return fft.concatenate(gates)
 
     torch.cuda.reset_peak_memory_stats(device)
-    dword.launches = 0
+    _reset_launches()
     composed = compose()
     torch.cuda.synchronize()
-    compose_launches = dword.launches
+    compose_launches = _launches()
     peak = torch.cuda.max_memory_allocated(device)
     if not (composed.is_cached('control_matrix') and composed == live):
         raise AssertionError('the composed flagship has no control matrix '
@@ -1427,10 +1531,10 @@ def concat_flagship(device, card, object_infid) -> dict:
     to_native = _rel(got, _native_control_matrix(live, omega))
     infid = fft.infidelity(composed, spectrum, omega)
     to_object = (infid - object_infid).abs().max().item()
-    dword.launches = 0
+    _reset_launches()
     scratch = live.get_control_matrix(omega)
     torch.cuda.synchronize()
-    launches = dword.launches
+    launches = _launches()
     print(f'concat flagship: 9 gates cached and concatenated with '
           f'{compose_launches} dword_digits launches; composed control '
           f'matrix against native from scratch {to_native:.3e} of the '
@@ -1460,15 +1564,15 @@ def concat_periodic(device, card) -> dict:
     launches by what made them."""
     omega, _ = _omega_spectrum(device)
     pulse = qft.qft_pulse_sequence(4, device=device)
-    dword.launches = 0
+    _reset_launches()
     pulse.cache_filter_function(omega)
     torch.cuda.synchronize()
-    launches = dword.launches
+    launches = _launches()
     if launches != 1:
         raise AssertionError(f'caching the flagship launched {launches} '
                              'kernels, not 1')
     short, long = TRAIN_REPEATS
-    dword.launches = 0
+    _reset_launches()
     periodic = fft.concatenate_periodic(pulse, short)
     uniform = fft.concatenate([pulse] * short)
     copies = fft.concatenate([copy.copy(pulse) for _ in range(short)])
@@ -1477,15 +1581,15 @@ def concat_periodic(device, card) -> dict:
         raise AssertionError('concatenate([p] * R) is not the closed form')
     to_copies = _rel(got, copies.get_control_matrix(omega))
     torch.cuda.synchronize()
-    train_launches = dword.launches
+    train_launches = _launches()
     if train_launches != 0:
         raise AssertionError(f'composing the trains launched '
                              f'{train_launches} kernels, not 0')
-    dword.launches = 0
+    _reset_launches()
     scratch = fft.concatenate_without_filter_function([pulse] * short)
     to_scratch = _rel(got, scratch.get_control_matrix(omega))
     torch.cuda.synchronize()
-    scratch_launches = dword.launches
+    scratch_launches = _launches()
     print(f'concat periodic: flagship cached with {launches} launch; '
           f'{short} repeats ({len(periodic)} segments) composed with '
           f'{train_launches} launches: equal to '
@@ -1499,11 +1603,11 @@ def concat_periodic(device, card) -> dict:
     del uniform, copies, scratch, got
 
     torch.cuda.reset_peak_memory_stats(device)
-    dword.launches = 0
+    _reset_launches()
     train = fft.concatenate_periodic(pulse, long)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(device)
-    train_launches += dword.launches
+    train_launches += _launches()
     filter_function = train.get_filter_function(omega)
     prop = train.total_propagator
     unitarity = (prop @ prop.mH - torch.eye(16, device=device)).abs().max() \
@@ -1544,24 +1648,24 @@ def concat_distinct(device, card, batched) -> dict:
             for c_coeffs in scales]
 
     gates = parts(device)
-    dword.launches = 0
+    _reset_launches()
     for gate in gates:
         gate.cache_control_matrix(omega)
     torch.cuda.synchronize()
-    part_launches = dword.launches
-    dword.launches = 0
+    part_launches = _launches()
+    _reset_launches()
     train = fft.concatenate(gates, calc_pulse_correlation_FF=True)
     f_pc = train.get_pulse_correlation_filter_function()
     total = train.get_filter_function(omega)
     sums = _rel(f_pc.sum((0, 1)), total)
     torch.cuda.synchronize()
-    compose_launches = dword.launches
-    dword.launches = 0
+    compose_launches = _launches()
+    _reset_launches()
     scratch = fft.concatenate_without_filter_function(gates)
     to_scratch = _rel(train.get_control_matrix(omega),
                       scratch.get_control_matrix(omega))
     torch.cuda.synchronize()
-    scratch_launches = dword.launches
+    scratch_launches = _launches()
 
     def native(dev):
         pulses = parts(dev)
@@ -1569,9 +1673,9 @@ def concat_distinct(device, card, batched) -> dict:
             p.cache_control_matrix(omega.to(dev),
                                    _native_control_matrix(p, omega.to(dev)))
         return fft.concatenate(pulses).get_control_matrix(omega.to(dev))
-    dword.launches = 0
+    _reset_launches()
     to_cpu = _rel(native(device).cpu(), native('cpu'))
-    native_launches = dword.launches
+    native_launches = _launches()
     print(f'concat distinct: 4 flagship-sized gates cached with '
           f'{part_launches} dword_digits launches and concatenated with '
           f'{compose_launches}; pulse-correlation filter '
@@ -1591,13 +1695,13 @@ def concat_distinct(device, card, batched) -> dict:
     _check('pulse correlations sum to the total', sums, CONCAT_PARITY)
     _check('K5 against from scratch', to_scratch, OZAKI_CTRL_PARITY)
     _check('K5 on the card against the CPU', to_cpu, CONCAT_PARITY)
-    dword.launches = 0
+    _reset_launches()
     ms = _median_ms(lambda: fft.concatenate(
         gates, calc_pulse_correlation_FF=True), N_TIMED)
-    compose_launches += dword.launches
+    compose_launches += _launches()
     print(f'timing: concat distinct {ms:.4f} ms per concatenation of 4 '
           f'cached gates with pulse correlations (median of {N_TIMED}, '
-          f'{dword.launches} launches) [{card}]')
+          f'{_launches()} launches) [{card}]')
     if compose_launches != 0:
         raise AssertionError('the timed concatenations launched the kernel')
     return {'cache_control_matrix (4 flagship-sized gates)': part_launches,
@@ -1632,7 +1736,7 @@ def clifford_train(device):
 def concat_small(device, card) -> int:
     """Phase 9d: bench.py's small-d configurations; returns the kernel's
     launches (none of these pulses is deep)."""
-    dword.launches = 0
+    _reset_launches()
     X, Y, Z = fft.util.paulis[1:]
 
     # concat_train
@@ -1729,14 +1833,14 @@ def concat_small(device, card) -> int:
         seqs, omega, spectrum, device=device), N_TIMED)
     print(f'timing: rb {ms / n_seq:.6f} ms/sequence ({ms:.4f} ms per call of '
           f'{n_seq}, median of {N_TIMED}) [{card}]')
-    return dword.launches
+    return _launches()
 
 
 def concat_second_order(device, card) -> int:
     """Phase 9e: K11 on two pulses at config_second_order's shapes;
     returns the kernel's launches (d = 4 is not deep)."""
     _, host, basis, omega, _ = second_order_inputs(device)
-    dword.launches = 0
+    _reset_launches()
     pulses = [fft.PulseSequence.from_arrays(
         host['c_opers'], ['A', 'B'], host['c_coeffs'][b], host['n_opers'],
         ['a', 'b'], host['n_coeffs'][b], host['dt'][b], basis=basis,
@@ -1763,7 +1867,7 @@ def concat_second_order(device, card) -> int:
     print(f'timing: concat second order {_median_ms(compose, N_TIMED):.4f} '
           f'ms per cold composition (both parts\' second-order caches, then '
           f'K11; median of {N_TIMED}) [{card}]')
-    return dword.launches
+    return _launches()
 
 
 def _extend_parts(device):
@@ -1833,16 +1937,16 @@ def extend_flagship(device, card):
     pulse and the kernel's launches by what made them."""
     omega, _ = _omega_spectrum(device)
     parts, explicit, extra, pairs = _extend_parts(device)
-    dword.launches = 0
+    _reset_launches()
     for part in parts:
         part.cache_filter_function(omega)
     torch.cuda.synchronize()
-    part_launches = dword.launches
+    part_launches = _launches()
     torch.cuda.reset_peak_memory_stats(device)
-    dword.launches = 0
+    _reset_launches()
     ext = _extend(parts, extra)
     torch.cuda.synchronize()
-    launches = dword.launches
+    launches = _launches()
     peak = torch.cuda.max_memory_allocated(device)
     same = all(np.array_equal(getattr(ext, f), getattr(explicit, f))
                for f in ('c_opers', 'c_oper_identifiers', 'c_coeffs',
@@ -1923,9 +2027,9 @@ def extend_flagship(device, card):
           f'CPU port {to_cpu:.3e} of the largest entry (bound {CPU_PARITY})')
     _check('extend on the card against the CPU', to_cpu, CPU_PARITY)
 
-    dword.launches = 0
+    _reset_launches()
     ms = _median_ms(lambda: _extend(parts, extra), N_TIMED)
-    timed_launches = dword.launches
+    timed_launches = _launches()
 
     def scratch():
         explicit.cleanup('all')
@@ -1947,10 +2051,10 @@ def remap_extended(device, card, ext) -> dict:
     launches."""
     omega, _ = _omega_spectrum(device)
     order = (2, 0, 3, 1)
-    dword.launches = 0
+    _reset_launches()
     remapped = fft.remap(ext, order)
     torch.cuda.synchronize()
-    launches = dword.launches
+    launches = _launches()
     inv_perm = torch.as_tensor(np.argsort(
         basis.remap_pauli_basis_elements(order, 4)), device=device)
     ctrl = ext.get_control_matrix(omega)
@@ -1980,11 +2084,11 @@ def remap_extended(device, card, ext) -> dict:
                              'permutation of the extended pulse')
     _check('remapped parts\' rows', to_parts, CONCAT_PARITY)
     _check('remapped crosstalk rows', to_extra, OZAKI_CTRL_PARITY)
-    dword.launches = 0
+    _reset_launches()
     ms = _median_ms(lambda: fft.remap(ext, order), N_TIMED)
     print(f'timing: remap {ms:.4f} ms per remap of the cached extended '
-          f'pulse (median of {N_TIMED}, {dword.launches} launches) [{card}]')
-    return {'remap (extended pulse)': launches + dword.launches}
+          f'pulse (median of {N_TIMED}, {_launches()} launches) [{card}]')
+    return {'remap (extended pulse)': launches + _launches()}
 
 
 def cpmg_family(device):
@@ -2009,7 +2113,7 @@ def spectroscopy_cpmg(device, card) -> int:
     kernel's launches."""
     n_pulses, _, n_nodes, n_steps = SPECTRO_SHAPE
     p, taus, omega = cpmg_family(device)
-    dword.launches = 0
+    _reset_launches()
 
     def design():
         ffs = functional.fidelity_filter_function(p, omega)[:, 0, 0].real
@@ -2023,7 +2127,7 @@ def spectroscopy_cpmg(device, card) -> int:
                                         n_steps=n_steps)
     s_hat = solve()
     torch.cuda.synchronize()
-    launches = dword.launches
+    launches = _launches()
     spectrum = spectroscopy.interpolate_spectrum(s_true, nodes, omega)
     idx = np.linspace(0, n_pulses - 1, 8).astype(int)
     direct = torch.stack([fft.infidelity(
@@ -2077,7 +2181,7 @@ def exchange_cnot(device, card) -> int:
         pulses = {dev: exchange.cnot_pulse(str(path), device=dev)
                   for dev in (device, 'cpu')}
     infids = {}
-    dword.launches = 0
+    _reset_launches()
     for dev, pulse in pulses.items():
         pulse.basis = exchange.qubit_subspace_basis()
         pulse.d = 4
@@ -2086,7 +2190,7 @@ def exchange_cnot(device, card) -> int:
                                      omega, ['eps_12', 'eps_23', 'eps_34'])
         if dev == device:
             torch.cuda.synchronize()
-            launches = dword.launches
+            launches = _launches()
     rel = ((infids[device].cpu() - infids['cpu']).abs()
            / infids['cpu'].abs()).max().item()
     print(f'exchange: heisenberg_operators(4) {exchange_ops.shape} + '
@@ -2126,11 +2230,11 @@ def sharded_flagship(device, card, batched, omega, spectrum, infid):
     and the kernel's launches by path."""
     mesh = parallel.make_mesh(1, device=device)
     sharding.collectives = []
-    dword.launches = 0
+    _reset_launches()
     got = parallel.sharded_batched_infidelity(batched, spectrum, omega, mesh,
                                               chunk_size=CHUNK)
     torch.cuda.synchronize()
-    launches, reduced = dword.launches, list(sharding.collectives)
+    launches, reduced = _launches(), list(sharding.collectives)
     equal = torch.equal(_full(got), infid)
     print(f'sharded flagship: make_mesh(1) on {device}: mesh '
           f'{tuple(mesh.shape)} {mesh.mesh_dim_names}, backend '
@@ -2167,7 +2271,7 @@ def dryrun_grape(mesh, n_ranks, device, cpu_mesh=None):
     collectives of a step, kernel launches); *cpu_mesh* as in
     :func:`_local`."""
     _, p, omega, spectrum = dryrun_inputs(n_ranks, device)
-    dword.launches = 0
+    _reset_launches()
     sharding.collectives = []
     c1, loss0 = parallel.grape_step(p.c_coeffs, p, spectrum, omega, mesh,
                                     learning_rate=1e-3)
@@ -2178,7 +2282,7 @@ def dryrun_grape(mesh, n_ranks, device, cpu_mesh=None):
                                                         mesh), cpu_mesh)
     torch.cuda.synchronize()
     return (_full(loss0, cpu_mesh).item(), _full(loss1, cpu_mesh).item(),
-            infids.cpu(), reduced, dword.launches)
+            infids.cpu(), reduced, _launches())
 
 
 def _check_dryrun(name, loss0, loss1, infids):
@@ -2210,26 +2314,26 @@ def _rank_11b():
                      one, omega, mesh)}
         for name, call in calls.items():
             sharding.collectives = []
-            dword.launches = 0
+            _reset_launches()
             result = call()
             torch.cuda.synchronize()
             out[shape, name] = (_full(result, cpu_mesh),
                                 list(sharding.collectives),
-                                dword.launches)
+                                _launches())
         # autograd: the sum of the rank's rows (8a's loss), backpropagated
         c = p.c_coeffs.detach().clone().requires_grad_(True)
         sharding.collectives = []
-        dword.launches = 0
+        _reset_launches()
         result = parallel.sharded_batched_infidelity(
             p._replace(c_coeffs=c), spectrum, omega, mesh, chunk_size=CHUNK)
-        forward = (list(sharding.collectives), dword.launches)
+        forward = (list(sharding.collectives), _launches())
         sharding.collectives = []
-        dword.launches = 0
+        _reset_launches()
         result.to_local().sum().backward()
         torch.cuda.synchronize()
         out[shape, 'backward'] = (c.grad.cpu(), mesh.get_coordinate()[0],
                                   forward, (list(sharding.collectives),
-                                            dword.launches))
+                                            _launches()))
     mesh, cpu_mesh = meshes[2, 1]
     out['dryrun'] = dryrun_grape(mesh, 2, device, cpu_mesh)
     # 12b: the rank function of entry.dryrun_multichip(2) in this group
@@ -2349,12 +2453,12 @@ def grape_flagship(device, card, mesh, batched, omega, spectrum,
     p = _first(batched, GRAD_BATCH)
     torch.cuda.reset_peak_memory_stats(device)
     sharding.collectives = []
-    dword.launches = 0
+    _reset_launches()
     new, loss = parallel.grape_step(p.c_coeffs, p, spectrum, omega, mesh,
                                     learning_rate=GRAPE_PROBE_LR,
                                     chunk_size=CHUNK)
     torch.cuda.synchronize()
-    launches, step_reduced = dword.launches, list(sharding.collectives)
+    launches, step_reduced = _launches(), list(sharding.collectives)
     peak = torch.cuda.max_memory_allocated(device)
     grad = (p.c_coeffs - _full(new)) / GRAPE_PROBE_LR
     to_8a = _rel(grad, grad_8a)
@@ -2374,7 +2478,7 @@ def grape_flagship(device, card, mesh, batched, omega, spectrum,
           f'(median of {N_TIMED}, batch {GRAD_BATCH}, chunk {CHUNK}); peak '
           f'device memory {peak / 2**30:.2f} GiB [{card}]')
 
-    dword.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     res = parallel.optimize_pulse(p, spectrum, omega, n_steps=OPTIMIZE_STEPS,
                                   mesh=mesh, chunk_size=CHUNK)
@@ -2382,7 +2486,7 @@ def grape_flagship(device, card, mesh, batched, omega, spectrum,
     final = _full(res.infidelity)
     torch.cuda.synchronize()
     opt_ms = (time.perf_counter() - t0) * 1e3
-    opt_launches = dword.launches
+    opt_launches = _launches()
     print(f'grape flagship: optimize_pulse {OPTIMIZE_STEPS} steps (Adam, lr '
           f'1e-2): history {history.tolist()}, final infidelity '
           f'{final.tolist()}; dword_digits launches {opt_launches}; '
@@ -2403,10 +2507,10 @@ def entry_flagship(device, card, ozaki_row0, native_row0) -> int:
     launches in one call."""
     fn, args = entry.entry()
     torch.cuda.reset_peak_memory_stats(device)
-    dword.launches = 0
+    _reset_launches()
     out = fn(*args)
     torch.cuda.synchronize()
-    launches = dword.launches
+    launches = _launches()
     peak = torch.cuda.max_memory_allocated(device)
     if (out.shape != (18,) or out.dtype != torch.float64
             or out.device != device or not torch.isfinite(out).all()):
@@ -2422,11 +2526,11 @@ def entry_flagship(device, card, ozaki_row0, native_row0) -> int:
     _check('12a: entry() against phase 4 Ozaki row 0', to_ozaki,
            OBJECT_PARITY)
     _check('12a: entry() against phase 4 native row 0', to_native, PARITY)
-    dword.launches = 0
+    _reset_launches()
     ms = _median_ms(lambda: fn(*args), N_TIMED)
-    if launches != 1 or dword.launches != N_TIMED:
+    if launches != 1 or _launches() != N_TIMED:
         raise AssertionError(f'entry(): {launches} launches in one call, '
-                             f'{dword.launches} in {N_TIMED}: not 1 a call')
+                             f'{_launches()} in {N_TIMED}: not 1 a call')
     print(f'timing: entry() step {ms:.4f} ms per call (median of '
           f'{N_TIMED}); peak device memory {peak / 2**30:.3f} GiB [{card}]')
     return launches
@@ -2489,10 +2593,10 @@ def cpmg_pathology(device, card) -> dict:
     pulse, pb, omega, spectrum = _cpmg_300(device)
     _, pb_cpu, omega_cpu, spectrum_cpu = _cpmg_300('cpu')
     route = config.contraction_mode(device)
-    dword.launches = 0
+    _reset_launches()
     got = functional.batched_infidelity(pb, spectrum, omega)
     torch.cuda.synchronize()
-    launches = dword.launches
+    launches = _launches()
     _, ratios = functional._batched_stat(pb, spectrum, omega, None, 'stat',
                                          route)
     stat = ratios.max().item()
@@ -2530,10 +2634,10 @@ def cpmg_pathology(device, card) -> dict:
               f'per call of 2 (median of {ESCALATION_ROUNDS} in turns with '
               f'the others; quartiles {q1:.4f}, {q3:.4f}) [{card}]')
 
-    dword.launches = 0
+    _reset_launches()
     f_got = pulse.get_filter_function(omega).real
     torch.cuda.synchronize()
-    object_launches = dword.launches
+    object_launches = _launches()
     f_native = numeric.calculate_filter_function(
         _native_control_matrix(pulse, omega), 'fidelity').real
     f_cpu = dd.dd_pulse(300, tau=10, tau_pi=1e-2, device='cpu') \
@@ -2698,14 +2802,14 @@ def examples_on_card(device, card) -> dict:
             module = _load_example(name)
             extra = ['--out', out] if name in EXAMPLE_FIGURES else []
             torch.cuda.synchronize()
-            dword.launches = 0
+            _reset_launches()
             t0 = time.perf_counter()
             values = module.main(['--device', 'cuda'] + extra)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            launches[f'examples_torch/{name}.py'] = dword.launches
+            launches[f'examples_torch/{name}.py'] = _launches()
             print(f'13 {name}: {ms:.1f} ms on the card, dword_digits '
-                  f'launches {dword.launches} [{card}]; numbers '
+                  f'launches {_launches()} [{card}]; numbers '
                   f'{_plain(values)}')
             cpu = None
             if name not in ('periodic_driving', 'optimal_control'):

@@ -1,4 +1,4 @@
-"""The factored Ozaki contraction and its CUDA kernel."""
-from . import dword, ozaki
+"""The factored Ozaki contraction and its CUDA kernels."""
+from . import dword, ozaki, products
 
-__all__ = ['dword', 'ozaki']
+__all__ = ['dword', 'ozaki', 'products']

@@ -8,8 +8,11 @@ operand P is split into int8 digit slices with power-of-two row scales;
 the operand ``D[k, (j c)] = B[k, j] * C[k, c]`` is never assembled in
 floating point: its digits come from 23-bit fixed-point factors through
 :func:`.dword.dword_digits`.  Every slice product is an int8 GEMM that
-accumulates exactly in int32 (``torch._int_mm``); the levels are summed
-in two-float32 arithmetic and widened to float64 once.
+accumulates exactly in int32; the levels are summed in two-float32
+arithmetic and widened to float64 once.  On CUDA tensors one kernel
+(:func:`.products.ozaki_products`) does all of that for a call's three
+Gauss products; on the CPU the composite :func:`_outer_contract_plain`
+(``torch._int_mm`` and elementwise operations) does.
 
 The arithmetic follows the JAX package expression for expression, so on
 equal inputs the result is bit-exact against it.  The digit pipeline has
@@ -24,7 +27,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from .. import config, tracing
-from . import dword
+from . import dword, products
 
 #: int8 digit width: 7-bit digits keep every K <= 2^17 slice product sum
 #: exact in the int32 accumulator.
@@ -185,7 +188,31 @@ def _fix(re: torch.Tensor, im: torch.Tensor):
 
 
 def _outer_contract(pr, pi, ps, outs, slice_bits):
-    """Slice products and Gauss recombination of the factored route."""
+    """Slice products and Gauss recombination of the factored route.
+
+    pr, pi, ps: (slices (B, M, K) int8, row scale (B, M, 1)) of P's
+    three Gauss components; outs: (slices (B, K, N) int8, column scale
+    (B, 1, N) float64) of D's.  CUDA tensors take one launch of the
+    kernel of :mod:`.products`, CPU tensors the composite
+    :func:`_outer_contract_plain`; both give the same bits.  Counts the
+    products' int8 operations, 3 B sum_pairs 2 M K N, in
+    ``tracing.counts['ozaki.int8_ops']``."""
+    n = products.check(pr, pi, ps, outs, slice_bits)
+    B, M, K = pr[0][0].shape
+    N = outs[0][0][0].shape[-1]
+    tracing.counts['ozaki.int8_ops'] += \
+        3 * B * (n * (n + 1) // 2) * 2 * M * K * N
+    with tracing.span('ff.ozaki.products'):
+        if pr[0][0].device.type == 'cuda':
+            return products.ozaki_products(pr, pi, ps, outs, slice_bits,
+                                           n)
+        return _outer_contract_plain(pr, pi, ps, outs, slice_bits)
+
+
+def _outer_contract_plain(pr, pi, ps, outs, slice_bits):
+    """The plain version of :func:`_outer_contract`: each slice pair's
+    int8 GEMM, the level sums, the double-single recombination and the
+    Gauss combination as torch operations."""
     def mm(a, d):
         a_sl, a_sc = a
         d_sl, d_sc = d
@@ -193,12 +220,11 @@ def _outer_contract(pr, pi, ps, outs, slice_bits):
         out = _matmul_from_slices(a_sl[:n], d_sl[:n], slice_bits)
         return out * a_sc * d_sc
 
-    with tracing.span('ff.ozaki.products'):
-        p1 = mm(pr, outs[0])
-        p2 = mm(pi, outs[1])
-        p3 = mm(ps, outs[2])
-        # Gauss: re = Pr Dr - Pi Di; im = (Pr + Pi)(Dr + Di) - p1 - p2
-        return p1 - p2, p3 - p1 - p2
+    p1 = mm(pr, outs[0])
+    p2 = mm(pi, outs[1])
+    p3 = mm(ps, outs[2])
+    # Gauss: re = Pr Dr - Pi Di; im = (Pr + Pi)(Dr + Di) - p1 - p2
+    return p1 - p2, p3 - p1 - p2
 
 
 def ozaki_matmul_c_outer(p_re: torch.Tensor, p_im: torch.Tensor,

@@ -20,7 +20,8 @@ Span                   Where
                        frequency integral
 ``ff.ozaki.products``  :func:`.ops.ozaki._outer_contract`: the three Gauss
                        products' int8 slice GEMMs and their double-single
-                       recombination
+                       recombination (on CUDA one launch of the kernel of
+                       :mod:`.ops.products`, on the CPU the composite)
 =====================  ==================================================
 
 The backward has no span of its own: autograd opens
@@ -29,7 +30,8 @@ The backward has no span of its own: autograd opens
 
 :data:`counts` counts the host's reads of the device and the escalation
 decisions, each at the site that makes it, after the value is on the
-host; clear it with ``counts.clear()``.
+host, and the work of the slice products; clear it with
+``counts.clear()``.
 
 ===========================  ============================================
 Counter                      Incremented by
@@ -45,12 +47,16 @@ Counter                      Incremented by
 ``escalation.decisions``     each of the two escalation decisions above
 ``escalation.escalated``     each decision that recomputes at full
                              precision
+``ozaki.int8_ops``           :func:`.ops.ozaki._outer_contract`, by the
+                             int8 operations of its slice products,
+                             3 B sum_pairs 2 M K N (unpadded, on every
+                             device)
 ===========================  ============================================
 
-The port's two older counters stay in their modules:
-:data:`.ops.dword.launches` (launches of the CUDA kernel) and
-:data:`.parallel.sharding.collectives` (collectives of the sharded
-entry points).
+The port's other counters stay in their modules:
+:data:`.ops.dword.launches` and :data:`.ops.products.launches` (launches
+of the two CUDA kernels) and :data:`.parallel.sharding.collectives`
+(collectives of the sharded entry points).
 """
 from __future__ import annotations
 

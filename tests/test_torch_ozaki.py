@@ -21,7 +21,9 @@ import pytest
 import torch
 
 from filter_functions_tpu.ops import ozaki as jozaki
-from filter_functions_tpu_torch.ops import ozaki
+from filter_functions_tpu_torch import tracing
+from filter_functions_tpu_torch.ops import dword, ozaki, products
+from torch_testutil import products_inputs
 
 
 _XLA_EXP2 = jnp.exp2
@@ -225,3 +227,186 @@ def test_int_mm_batched_on_card_takes_every_shape():
                              ).transpose(-1, -2)
         got = ozaki._int_mm_batched(a.cuda(), b.cuda())
         assert torch.equal(got.cpu(), ozaki._int_mm_batched(a, b))
+
+
+# The slice products of a call: ops.ozaki._outer_contract takes the kernel
+# of ops.products on CUDA tensors and the composite _outer_contract_plain
+# on the CPU.
+
+@pytest.mark.parametrize('slice_bits', [5, 6, 7])
+def test_outer_contract_on_cpu_takes_the_plain_version(slice_bits):
+    """CPU tensors take the composite: the same bits, no kernel launch."""
+    args = products_inputs(2, 20, 256, 24, slice_bits, 'cpu',
+                                      slice_bits)
+    before = products.launches
+    got = ozaki._outer_contract(*args, slice_bits)
+    want = ozaki._outer_contract_plain(*args, slice_bits)
+    assert products.launches == before
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[0].dtype == torch.float64 and got[0].shape == (2, 20, 24)
+
+
+def _spoil(case):
+    """A call of _outer_contract with one thing wrong, and the error."""
+    *sides, outs = products_inputs(1, 8, 64, 8, 7, 'cpu', 0)
+    (pr, sc), rest = sides[0], sides[1:]
+    if case == 'slice dtype':
+        pr = [pr[0].to(torch.int16)] + pr[1:]
+        return [(pr, sc), *rest], outs, 7, TypeError
+    if case == 'scale dtype':
+        return [(pr, sc.to(torch.float16)), *rest], outs, 7, TypeError
+    if case == 'mixed scale dtypes':
+        return [(pr, sc.double()), *rest], outs, 7, TypeError
+    if case == 'd scale dtype':
+        d_sl, d_sc = outs[1]
+        return sides, [outs[0], (d_sl, d_sc.float()), outs[2]], 7, TypeError
+    if case == 'device mix':
+        return [(pr, sc.to('meta')), *rest], outs, 7, ValueError
+    if case == 'shape':
+        pr = [pr[0][:, :4]] + pr[1:]
+        return [(pr, sc), *rest], outs, 7, ValueError
+    if case == 'slice count':
+        return [(pr[:4], sc), *rest], outs, 7, ValueError
+    if case == 'slice bits':
+        return sides, outs, 8, ValueError
+    if case == 'two D sides':
+        return sides, outs[:2], 7, ValueError
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize('case', ['slice dtype', 'scale dtype',
+                                  'mixed scale dtypes', 'd scale dtype',
+                                  'device mix', 'shape', 'slice count',
+                                  'slice bits', 'two D sides'])
+def test_outer_contract_rejects_what_the_kernel_does_not_take(case):
+    """The wrapper checks its arguments on every device, before either
+    version runs: a wrong dtype, P scales of two dtypes, a device mix, a
+    shape that disagrees, a
+    slice count other than the route's ceil(30 / slice_bits), a slice
+    width outside 5..7."""
+    sides, outs, slice_bits, error = _spoil(case)
+    with pytest.raises(error):
+        ozaki._outer_contract(*sides, outs, slice_bits)
+
+
+def test_products_launch_needs_a_card():
+    """The launch itself takes CUDA tensors only: no fallback."""
+    args = products_inputs(1, 8, 64, 8, 7, 'cpu', 0)
+    with pytest.raises(ValueError, match='CUDA'):
+        products.ozaki_products(*args, 7, 5)
+
+
+@pytest.mark.parametrize('B, M, K, N, slice_bits',
+                         [(2, 24, 512, 40, 7), (1, 10, 2416, 4, 5)])
+def test_int8_ops_counts_the_logical_products(B, M, K, N, slice_bits):
+    """tracing.counts['ozaki.int8_ops'] rises by 3 B sum_pairs 2 M K N a
+    call: n (n + 1) / 2 slice pairs of the n = ceil(30 / slice_bits)
+    levels, unpadded."""
+    args = products_inputs(B, M, K, N, slice_bits, 'cpu', K)
+    n = -(-30 // slice_bits)
+    before = tracing.counts['ozaki.int8_ops']
+    ozaki._outer_contract(*args, slice_bits)
+    assert tracing.counts['ozaki.int8_ops'] - before == \
+        3 * B * (n * (n + 1) // 2) * 2 * M * K * N
+
+
+#: Shapes of the slice products the port makes on the card: the cells'
+#: chunk, the object path's G-chunked depth, sequencing.extend's
+#: crosstalk rows, the sharded entries' omega shards, the qft example,
+#: the CPMG-300 train (K = 2404, whose rows the wrapper pads to 16
+#: bytes), and slice widths 5 and 6 on small synthetic depths.
+CARD_SHAPES = {
+    'cells_chunk': (2, 1000, 3328, 4608, 7),
+    'object_path': (1, 1000, 13312, 4608, 7),
+    'extend_crosstalk': (1, 1000, 3328, 768, 7),
+    'sharded_2': (2, 500, 3328, 4608, 7),
+    'sharded_4': (2, 250, 3328, 4608, 7),
+    'qft_example': (1, 500, 3328, 4608, 7),
+    'cpmg_300': (1, 100, 2404, 4, 7),
+    'slice_bits_6': (2, 130, 1024, 200, 6),
+    'slice_bits_5': (1, 70, 512, 130, 5),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', list(CARD_SHAPES))
+def test_products_kernel_is_bit_exact_on_card(name):
+    """On the card the kernel equals the composite bit for bit (its int32
+    levels, double-single recombination, widening, scaling and Gauss
+    combination), in one launch a call; and with float64 row scales."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the slice-products kernel has no '
+                    'CPU mode; the wrapper is tested above')
+    B, M, K, N, slice_bits = CARD_SHAPES[name]
+    for p_dtype in (torch.float32, torch.float64):
+        args = products_inputs(B, M, K, N, slice_bits, 'cuda',
+                                          M + K, p_dtype)
+        want = ozaki._outer_contract_plain(*args, slice_bits)
+        before = products.launches
+        got = ozaki._outer_contract(*args, slice_bits)
+        torch.cuda.synchronize()
+        assert products.launches - before == 1
+        for g, w in zip(got, want):
+            assert g.shape == (B, M, N) and torch.equal(g, w), name
+
+
+@pytest.mark.gpu
+def test_products_kernel_on_the_routes_operands():
+    """The whole factored forward on the card: P sliced, D's digits from
+    dword_digits, the products from the kernel, against the same operands
+    through the composite; one launch of each kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    rng = np.random.default_rng(36)
+    M, K, J, C = 300, 3328, 3, 256
+    P = _complex(rng, (M, K)) * 10.0**rng.integers(-3, 3, (M, 1))
+    B = _complex(rng, (K, J)) * np.exp2(rng.integers(-8, 8, (1, J)))
+    Cm = _complex(rng, (K, C)) * np.exp2(rng.integers(-8, 8, (1, C)))
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in (P.real.astype(np.float32), P.imag.astype(np.float32),
+                      B.real, B.imag, Cm.real, Cm.imag)]
+    calls = []
+    plain = ozaki._outer_contract_plain
+
+    def spy(*a):
+        calls.append(a)
+        return plain(*a)
+
+    before = (dword.launches, products.launches)
+    got = ozaki.ozaki_matmul_c_outer(*args, 24)
+    torch.cuda.synchronize()
+    assert (dword.launches - before[0], products.launches - before[1]) \
+        == (1, 1)
+    ozaki._outer_contract_plain = spy
+    try:
+        re, im = ozaki._ozaki_outer_forward(*args, 24)
+    finally:
+        ozaki._outer_contract_plain = plain
+    assert not calls        # CUDA tensors never take the composite
+    want = plain(*_route_operands(args))
+    for g, r, w in zip(got, (re, im), want):
+        assert torch.equal(g, r) and torch.equal(g, w[0])
+
+
+def _route_operands(args):
+    """The operands _ozaki_outer_forward hands _outer_contract, for a
+    single (M, K) product: (pr, pi, ps, outs, slice_bits)."""
+    p_re, p_im, b_re, b_im, c_re, c_im = (a[None] for a in args)
+    K = p_re.shape[-1]
+    slice_bits, n_p = ozaki._slice_params(K, 24, 'int8')
+    n_d = -(-30 // slice_bits)
+    n_p = max(n_p, n_d)
+    pr = ozaki._slice_fixed_point(p_re, n_p, slice_bits)
+    pi = ozaki._slice_fixed_point(p_im, n_p, slice_bits)
+    ps = ozaki._slice_fixed_point(p_re + p_im, n_p, slice_bits)
+    zbr, zbi, eb = ozaki._fix(b_re, b_im)
+    zcr, zci, ec = ozaki._fix(c_re, c_im)
+    J, Cc = b_re.shape[-1], c_re.shape[-1]
+    e_bc = (eb[..., :, None] + ec[..., None, :]).reshape(-1, J * Cc)
+    digits, dshifts = dword.dword_digits(zbr, zbi, zcr, zci, n_d,
+                                         slice_bits)
+    outs = [([digits[:, t, s].transpose(-1, -2) for s in range(n_d)],
+             torch.exp2((e_bc - 28 - dshifts[:, t] + (n_d - 1) * slice_bits)
+                        .to(torch.float64))[..., None, :])
+            for t in range(3)]
+    return pr, pi, ps, outs, slice_bits

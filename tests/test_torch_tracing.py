@@ -1,7 +1,8 @@
 """The port's spans and counters (filter_functions_tpu_torch.tracing):
 the spans appear, nested as documented, only under a profiler and
 change no value; the counters count each read of the device and each
-escalation decision at its site."""
+escalation decision at its site, and the int8 operations of the Ozaki
+slice products."""
 import contextlib
 
 import numpy as np
@@ -13,6 +14,11 @@ from filter_functions_tpu_torch.basis import Basis
 
 D, G, BATCH, CHUNK = 4, 80, 4, 2     # K = G d^2 = 1280: the deep route
 OZAKI_NODE = 'autograd::engine::evaluate_function: _OzakiOuterBackward'
+#: int8 operations of the slice products of one pulse: 3 Gauss products
+#: of 15 slice pairs (7-bit slices, 5 levels), each 2 M K N with M = 11
+#: frequencies, K = G d^2 and N = 1 noise operator times d^2 basis
+#: elements
+PULSE_INT8_OPS = 3 * 15 * 2 * 11 * (G * D * D) * (D * D)
 
 
 def _herm(n, rng):
@@ -132,7 +138,8 @@ def test_escalation_counts(pulse, tol, decisions, escalated):
                                       contract='ozaki', **kw)
     want = {'sync.escalation': decisions,
             'escalation.decisions': decisions,
-            'escalation.escalated': escalated}
+            'escalation.escalated': escalated,
+            'ozaki.int8_ops': BATCH * PULSE_INT8_OPS}
     assert got == {k: v for k, v in want.items() if v}
 
 
@@ -174,7 +181,8 @@ def test_control_matrix_escalation_counts(pulse, monkeypatch, tol,
             w, v, props, omega, p.basis, p.n_opers, p.n_coeffs[0], p.dt[0],
             contract='ozaki', budget_bytes=1 << 30)
     want = {'sync.ctrlmat_escalation': 1, 'escalation.decisions': 1,
-            'escalation.escalated': escalated}
+            'escalation.escalated': escalated,
+            'ozaki.int8_ops': PULSE_INT8_OPS}
     assert got == {k: v for k, v in want.items() if v}
 
 

@@ -9,6 +9,10 @@ they take to build the port's pulse on the CPU.
 ``parallel.ranks.run_ranks``), for the tests of
 ``filter_functions_tpu_torch.parallel``.  This module imports no JAX, and
 each rank checks that it never does.
+
+:func:`products_inputs` makes random arguments of the Ozaki route's slice
+products (``ops.ozaki._outer_contract``), for the tests and for
+``chip_smoke.py``'s phase 3b.
 """
 import contextlib
 import functools
@@ -81,6 +85,33 @@ def _without_jax(name, *args):
 def pulse_arrays(arrays: dict) -> 'fft.functional.PulseArrays':
     """The port's PulseArrays on the CPU from a dict of numpy arrays."""
     return fft.convert.pulse_arrays_from_numpy(arrays, device='cpu')
+
+
+def products_inputs(batch, M, K, N, slice_bits, device, seed,
+                    p_dtype=torch.float32):
+    """Random digit slices and power-of-two scales of a call of
+    ``ozaki._outer_contract``: (pr, pi, ps, outs), the row scales in
+    *p_dtype* (P's), the D slices K-contiguous (batch, K, N) views of one
+    (batch, 3, n, N, K) digit tensor, as the route makes them."""
+    n = -(-30 // slice_bits)
+    g = torch.Generator(device=device).manual_seed(seed)
+    lim = 2**(slice_bits - 1)
+
+    def digits(*shape):
+        return torch.randint(-lim, lim + 1, shape, generator=g,
+                             device=device, dtype=torch.int8)
+
+    def pow2(lo, hi, shape, dtype):
+        return torch.exp2(torch.randint(lo, hi, shape, generator=g,
+                                        device=device).to(dtype))
+
+    sides = [([digits(batch, M, K) for _ in range(n)],
+              pow2(-20, 5, (batch, M, 1), p_dtype)) for _ in range(3)]
+    d = digits(batch, 3, n, N, K)
+    outs = [([d[:, t, s].transpose(-1, -2) for s in range(n)],
+             pow2(-40, -10, (batch, N), torch.float64)[..., None, :])
+            for t in range(3)]
+    return (*sides, outs)
 
 
 def _np(x):
