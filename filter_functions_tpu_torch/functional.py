@@ -289,54 +289,59 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
     incomplete steps).  Both are built only where a gradient reaches a
     degenerate Hamiltonian; the forward values do not change.
     """
-    n_nops = p.n_opers.shape[0]
-    idx = np.arange(n_nops)
-    s = util.parse_spectrum(spectrum, omega, idx, device=omega.device)
-    ham, eigvals, eigvecs, terms = _diagonalized(p, p.c_coeffs, p.n_coeffs,
-                                                 p.dt, omega)
-    _, n_t, b_t, ph, integral = terms
-    step = numeric._ctrlmat_step_contract(n_t, integral, b_t, ph)
-    degenerate = numeric._degenerate_control_matrix(
-        ham, eigvals, eigvecs, terms, omega, p.dt, per_step=second_order)
-    if second_order and degenerate is not None:
-        step = step + degenerate
-    ctrl = step.sum(-4)
-    if not second_order and degenerate is not None:
-        ctrl = ctrl + degenerate
-    diagonal = s.ndim <= 2 and not s.is_complex()
-    if diagonal:
-        weights = numeric._spectral_weights(s, omega, n_nops)
-        gamma = numeric._folded_decay_amplitudes(ctrl, weights)
-    else:
-        gamma = numeric._integrate_2pi(numeric._get_integrand(
-            s, omega, idx, 'total', 'generalized', control_matrix=ctrl),
-            omega)
-    delta = None
-    if second_order:
-        cumul_padded = numeric._pad_cumulative(
-            step, step.cumsum(-4)[..., :-1, :, :, :])
-        incomplete = numeric._degenerate_incomplete_steps(
-            ham, eigvals, eigvecs, n_t, b_t, omega, p.dt,
-            weights if diagonal else None, budget_bytes)
-        if diagonal:
-            shifts = numeric._second_order_diag_shifts(
-                eigvals, n_t, b_t, step, cumul_padded, omega, p.dt,
-                weights, budget_bytes)
-            if incomplete is not None:
-                shifts = shifts + incomplete
-            delta = shifts.real
-        else:
-            f2 = numeric._second_order_total(eigvals, n_t, b_t, step,
-                                             cumul_padded, omega, p.dt,
-                                             budget_bytes)
-            if incomplete is not None:
-                f2 = f2 + incomplete
-            delta = numeric._integrate_2pi(numeric._get_integrand(
-                s, omega, idx, 'total', 'generalized', filter_function=f2),
-                omega)
-    k_fn = numeric._cumulant_contract(gamma, delta, basis)
-    noise_axes = (-4, -3) if s.ndim == 3 else (-3,)
-    return numeric._expm(k_fn.sum(noise_axes))
+    with tracing.span('ff.etm'):
+        n_nops = p.n_opers.shape[0]
+        idx = np.arange(n_nops)
+        s = util.parse_spectrum(spectrum, omega, idx, device=omega.device)
+        with tracing.span('ff.prep'):
+            ham, eigvals, eigvecs, terms = _diagonalized(
+                p, p.c_coeffs, p.n_coeffs, p.dt, omega)
+        _, n_t, b_t, ph, integral = terms
+        diagonal = s.ndim <= 2 and not s.is_complex()
+        with tracing.span('ff.etm.steps'):
+            step = numeric._ctrlmat_step_contract(n_t, integral, b_t, ph)
+            degenerate = numeric._degenerate_control_matrix(
+                ham, eigvals, eigvecs, terms, omega, p.dt,
+                per_step=second_order)
+            if second_order and degenerate is not None:
+                step = step + degenerate
+            ctrl = step.sum(-4)
+            if not second_order and degenerate is not None:
+                ctrl = ctrl + degenerate
+            if diagonal:
+                weights = numeric._spectral_weights(s, omega, n_nops)
+                gamma = numeric._folded_decay_amplitudes(ctrl, weights)
+            else:
+                gamma = numeric._integrate_2pi(numeric._get_integrand(
+                    s, omega, idx, 'total', 'generalized',
+                    control_matrix=ctrl), omega)
+        delta = None
+        if second_order:
+            cumul_padded = numeric._pad_cumulative(
+                step, step.cumsum(-4)[..., :-1, :, :, :])
+            incomplete = numeric._degenerate_incomplete_steps(
+                ham, eigvals, eigvecs, n_t, b_t, omega, p.dt,
+                weights if diagonal else None, budget_bytes)
+            if diagonal:
+                shifts = numeric._second_order_diag_shifts(
+                    eigvals, n_t, b_t, step, cumul_padded, omega, p.dt,
+                    weights, budget_bytes)
+                if incomplete is not None:
+                    shifts = shifts + incomplete
+                delta = shifts.real
+            else:
+                f2 = numeric._second_order_total(eigvals, n_t, b_t, step,
+                                                 cumul_padded, omega, p.dt,
+                                                 budget_bytes)
+                if incomplete is not None:
+                    f2 = f2 + incomplete
+                delta = numeric._integrate_2pi(numeric._get_integrand(
+                    s, omega, idx, 'total', 'generalized',
+                    filter_function=f2), omega)
+        with tracing.span('ff.etm.cumulant'):
+            k_fn = numeric._cumulant_contract(gamma, delta, basis)
+            noise_axes = (-4, -3) if s.ndim == 3 else (-3,)
+            return numeric._expm(k_fn.sum(noise_axes))
 
 
 def error_transfer_matrix(p: PulseArrays, spectrum, omega, basis: Basis,

@@ -1340,22 +1340,25 @@ def _second_order_total(eigvals, n_opers_transformed, basis_transformed,
     cumul_padded (..., G, n_nops, n_b, n_w), dt (..., G).  Returns
     (..., n_nops, n_nops, n_b, n_b, n_w).
     """
-    G, d = eigvals.shape[-2:]
-    n_w = len(omega)
-    nob = _noise_basis_products(n_opers_transformed, basis_transformed)
-    n_nops, n_basis = nob.shape[-3:-1]
-    A = n_nops * n_basis
-    # per segment the f_z term's (ij, o, B) operand, the stacked products
-    # and their o-major copies; per step its (n_w, A, A) product, the f_z
-    # term, their difference and its permuted copy
-    chunk = _factored_chunk(eigvals, n_w, (d * d + 4 * (2 + _SO_SMALL_K)) * A,
-                            budget_bytes, fixed=4 * n_w * A * A)
-    total = _second_order_complete(ctrlmat_step, cumul_padded)
-    for start in range(0, G, chunk):
-        sl = slice(start, start + chunk)
-        total = total + _second_order_factored_contract(
-            omega, eigvals[..., sl, :], dt[..., sl], nob[..., sl, :, :, :])
-    return total
+    with tracing.span('ff.so.total'):
+        G, d = eigvals.shape[-2:]
+        n_w = len(omega)
+        nob = _noise_basis_products(n_opers_transformed, basis_transformed)
+        n_nops, n_basis = nob.shape[-3:-1]
+        A = n_nops * n_basis
+        # per segment the f_z term's (ij, o, B) operand, the stacked
+        # products and their o-major copies; per step its (n_w, A, A)
+        # product, the f_z term, their difference and its permuted copy
+        chunk = _factored_chunk(eigvals, n_w,
+                                (d * d + 4 * (2 + _SO_SMALL_K)) * A,
+                                budget_bytes, fixed=4 * n_w * A * A)
+        total = _second_order_complete(ctrlmat_step, cumul_padded)
+        for start in range(0, G, chunk):
+            sl = slice(start, start + chunk)
+            total = total + _second_order_factored_contract(
+                omega, eigvals[..., sl, :], dt[..., sl],
+                nob[..., sl, :, :, :])
+        return total
 
 
 def _second_order_steps(eigvals, n_opers_transformed, basis_transformed,
@@ -1587,29 +1590,31 @@ def _second_order_diag_shifts(eigvals, n_opers_transformed,
     real, S_a(w) w_trapz / 2 pi.  Returns complex (..., n_nops, n_b,
     n_b); its real part is the physical shift.
     """
-    G, d = eigvals.shape[-2:]
-    lead = eigvals.shape[:-2]
-    n_nops, n_basis, n_w = ctrlmat_step.shape[-3:]
-    nob = _noise_basis_products(n_opers_transformed, basis_transformed)
-    w = weights.to(config.COMPLEX)
+    with tracing.span('ff.so.shifts'):
+        G, d = eigvals.shape[-2:]
+        lead = eigvals.shape[:-2]
+        n_nops, n_basis, n_w = ctrlmat_step.shape[-3:]
+        nob = _noise_basis_products(n_opers_transformed, basis_transformed)
+        w = weights.to(config.COMPLEX)
 
-    # complete steps: (a, k, (g o)) @ (a, (g o), l), weight folded
-    xs = _perm_tail(ctrlmat_step.conj(), 1, 2, 0, 3).reshape(
-        *lead, n_nops, n_basis, G * n_w) * w.repeat(1, G)[:, None, :]
-    ys = _perm_tail(cumul_padded, 1, 0, 3, 2).reshape(*lead, n_nops,
-                                                      G * n_w, n_basis)
-    shifts = xs @ ys
-    del xs, ys              # control-matrix-sized: not held by the chunks
+        # complete steps: (a, k, (g o)) @ (a, (g o), l), weight folded
+        xs = _perm_tail(ctrlmat_step.conj(), 1, 2, 0, 3).reshape(
+            *lead, n_nops, n_basis, G * n_w) * w.repeat(1, G)[:, None, :]
+        ys = _perm_tail(cumul_padded, 1, 0, 3, 2).reshape(*lead, n_nops,
+                                                          G * n_w, n_basis)
+        shifts = xs @ ys
+        del xs, ys          # control-matrix-sized: not held by the chunks
 
-    # the weighted right-hand tables and the product's workspace
-    chunk = _factored_chunk(eigvals, n_w, 8 * n_nops * d * d, budget_bytes)
-    for start in range(0, G, chunk):
-        sl = slice(start, start + chunk)
-        ell = _factored_weighted_lattice(omega, eigvals[..., sl, :],
-                                         dt[..., sl], weights)
-        nob_c = nob[..., sl, :, :, :]                     # (g, a, k, ij)
-        shifts = shifts + (nob_c @ (ell @ nob_c.mT)).sum(-4)
-    return shifts
+        # the weighted right-hand tables and the product's workspace
+        chunk = _factored_chunk(eigvals, n_w, 8 * n_nops * d * d,
+                                budget_bytes)
+        for start in range(0, G, chunk):
+            sl = slice(start, start + chunk)
+            ell = _factored_weighted_lattice(omega, eigvals[..., sl, :],
+                                             dt[..., sl], weights)
+            nob_c = nob[..., sl, :, :, :]                 # (g, a, k, ij)
+            shifts = shifts + (nob_c @ (ell @ nob_c.mT)).sum(-4)
+        return shifts
 
 
 class _DegenerateIncompleteSteps(torch.autograd.Function):

@@ -13,7 +13,24 @@ Span                   Where
 =====================  ==================================================
 ``ff.prep``            :func:`.functional._prep`: the Hamiltonians, the
                        eigendecomposition, the propagators, the step terms
-                       and the degenerate-eigenspace term with its check
+                       and the degenerate-eigenspace term with its check;
+                       inside ``ff.etm``, the same without that term
+                       (:func:`.functional._diagonalized`)
+``ff.etm``             :func:`.functional._etm_core`: the whole error
+                       transfer matrix
+``ff.etm.steps``       in ``ff.etm``: the per-step control matrices
+                       (:func:`.numeric._ctrlmat_step_contract`), their
+                       degenerate-eigenspace term, their sum and the
+                       decay amplitudes
+``ff.so.shifts``       :func:`.numeric._second_order_diag_shifts`: the
+                       frequency shifts of a diagonal spectrum, the
+                       complete-step product and the chunks of the
+                       separable K2 tables
+``ff.so.total``        :func:`.numeric._second_order_total`: F^(2) of a
+                       cross-spectrum, the same two parts
+``ff.etm.cumulant``    in ``ff.etm``: the cumulant function
+                       (:func:`.numeric._cumulant_contract`) and its
+                       exponential (:func:`.numeric._expm`)
 ``ff.contract``        :func:`.functional._infid_contract`: the
                        control-matrix contraction (the Ozaki route with
                        ``dword_digits``, the quantization ratio) and the

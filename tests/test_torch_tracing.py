@@ -193,3 +193,75 @@ def test_expm_counts(calls):
         for _ in range(calls):
             numeric._expm(a)
     assert got == {'sync.expm': calls}
+
+
+# -----------------------------------------------------------------------------
+# The error transfer matrix
+# -----------------------------------------------------------------------------
+ETM_PARTS = ('ff.prep', 'ff.etm.steps', 'ff.so.shifts', 'ff.etm.cumulant')
+
+
+def _within(inner, outer):
+    return outer[0] <= inner[0] <= inner[1] <= outer[1]
+
+
+@pytest.mark.parametrize('second_order', [False, True],
+                         ids=['first', 'second'])
+def test_spans_of_the_error_transfer_matrix(pulse, second_order):
+    """One ff.etm per call, and in it, in turn and each once, ff.prep,
+    ff.etm.steps, with the second order ff.so.shifts (a diagonal
+    spectrum), and ff.etm.cumulant; the matrices bit for bit those
+    without a profiler."""
+    p, spectrum, omega = pulse
+
+    def fn():
+        return functional.batched_error_transfer_matrix(
+            p, spectrum, omega, Basis.ggm(D), second_order=second_order)
+    off = fn()
+    on, events = _profiled(fn)
+    assert torch.equal(on, off)
+    etm, = _ranges(events, 'ff.etm')
+    parts = [name for name in ETM_PARTS
+             if second_order or name != 'ff.so.shifts']
+    found = []
+    for name in parts:
+        span, = _ranges(events, name)
+        assert _within(span, etm)
+        found.append(span)
+    for before, after in zip(found, found[1:]):
+        assert before[1] <= after[0]
+    assert not _ranges(events, 'ff.so.total')
+    assert not _ranges(events, 'ff.contract')
+    if not second_order:
+        assert not _ranges(events, 'ff.so.shifts')
+
+
+def test_cross_spectrum_takes_the_total_span(pulse):
+    """A cross-spectrum's second order runs F^(2) in ff.so.total, inside
+    ff.etm between ff.etm.steps and ff.etm.cumulant, and no
+    ff.so.shifts."""
+    p, _, omega = pulse
+    spectrum = torch.ones(1, 1, 1) * (1e-3 / omega)
+    _, events = _profiled(lambda: functional.batched_error_transfer_matrix(
+        p, spectrum, omega, Basis.ggm(D), second_order=True))
+    etm, = _ranges(events, 'ff.etm')
+    steps, = _ranges(events, 'ff.etm.steps')
+    total, = _ranges(events, 'ff.so.total')
+    cumulant, = _ranges(events, 'ff.etm.cumulant')
+    assert _within(total, etm)
+    assert steps[1] <= total[0] and total[1] <= cumulant[0]
+    assert not _ranges(events, 'ff.so.shifts')
+
+
+def test_no_range_without_a_profiler(pulse, monkeypatch):
+    """Without a profiler the error transfer matrix opens no range."""
+    p, spectrum, omega = pulse
+    opened = []
+
+    def record(name):
+        opened.append(name)
+        return contextlib.nullcontext()
+    monkeypatch.setattr(torch.profiler, 'record_function', record)
+    functional.batched_error_transfer_matrix(p, spectrum, omega,
+                                             Basis.ggm(D), second_order=True)
+    assert opened == []
