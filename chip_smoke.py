@@ -1110,8 +1110,8 @@ def _timed(fn, device, card, label, per, unit):
 
 
 def reduced_term(omega, eigvals, dt, weights, lattice=False):
-    """The frequency-reduced incomplete-step term ell[..., g, a, ij, mn]
-    = sum_w weights[a, w] I[..., g, w, ij, mn] of the frequency shifts,
+    """The frequency-reduced incomplete-step term ell[..., g, s, ij, mn]
+    = sum_w weights[s, w] I[..., g, w, ij, mn] of the frequency shifts,
     over chunks of segments: from the separable tables
     (``numeric._factored_weighted_lattice``, in the chunks of
     ``numeric._second_order_diag_shifts``) or, as its plain version,
@@ -1120,14 +1120,14 @@ def reduced_term(omega, eigvals, dt, weights, lattice=False):
     per segment against ``config.memory_budget``)."""
     G, d = eigvals.shape[-2:]
     lead = eigvals.shape[:-2]
-    n_nops, n_w = weights.shape
+    n_s, n_w = weights.shape
     d2 = d * d
     if lattice:
         chunk = numeric._pick_chunk(
             G, eigvals[..., 0, 0].numel() * n_w * d2 * d2 * LATTICE_TEMPS
             * 16, config.memory_budget(eigvals.device))
     else:
-        chunk = numeric._factored_chunk(eigvals, n_w, 8 * n_nops * d2)
+        chunk = numeric._shifts_chunk(eigvals, n_w, n_s)
     parts = []
     for start in range(0, G, chunk):
         ev, seg_dt = eigvals[..., start:start + chunk, :], \
@@ -1139,7 +1139,7 @@ def reduced_term(omega, eigvals, dt, weights, lattice=False):
         int2 = numeric._second_order_integral_single(omega, ev, seg_dt)
         g = int2.shape[-6]
         ell = weights.to(int2.dtype) @ int2.reshape(*lead, g, n_w, d2 * d2)
-        parts.append(ell.reshape(*lead, g, n_nops, d2, d2))
+        parts.append(ell.reshape(*lead, g, n_s, d2, d2))
     return torch.cat(parts, -4)
 
 
@@ -1179,7 +1179,8 @@ def flagship_shift_inputs(device):
     _second_order_diag_shifts`` that ``functional._etm_core`` builds for
     row 0 of the flagship batch (eigenvalues, transformed noise operators
     and basis, per-step and padded cumulative control matrices, omega,
-    dt, the weights of S = 1e-4/omega)."""
+    dt, the one row of weights of S = 1e-4/omega, which serves all
+    noise operators)."""
     batched, omega, spectrum = flagship_inputs(device)
     p = batched._replace(c_coeffs=batched.c_coeffs[0],
                          n_coeffs=batched.n_coeffs[0], dt=batched.dt[0])
@@ -1189,7 +1190,8 @@ def flagship_shift_inputs(device):
     cumul_padded = numeric._pad_cumulative(
         step, step.cumsum(-4)[..., :-1, :, :, :])
     weights = numeric._spectral_weights(spectrum, omega, p.n_opers.shape[0])
-    return eigvals, n_t, b_t, step, cumul_padded, omega, p.dt, weights
+    rows = weights[:numeric._distinct_rows(spectrum)]
+    return eigvals, n_t, b_t, step, cumul_padded, omega, p.dt, rows
 
 
 def second_order_tables(device, card) -> int:

@@ -268,7 +268,9 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
 
     A real diagonal spectrum folds S w_trapz / 2 pi into the decay
     amplitudes ('ako,ao,alo->akl') and the frequency shifts
-    (:func:`.numeric._second_order_diag_shifts`), so neither the
+    (:func:`.numeric._second_order_diag_shifts`, with one weighted K2
+    lattice for each distinct row of the spectrum, one for all noise
+    operators where one row serves them all), so neither the
     (a, k, l, w) integrand nor F^(2) exists; other spectra integrate
     the integrand of the control matrix and of F^(2).  The second-order
     terms run over chunks of segments that fit
@@ -319,13 +321,15 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
         if second_order:
             cumul_padded = numeric._pad_cumulative(
                 step, step.cumsum(-4)[..., :-1, :, :, :])
+            # the distinct rows of the weights: one lattice for each
+            rows = weights[:numeric._distinct_rows(s)] if diagonal else None
             incomplete = numeric._degenerate_incomplete_steps(
-                ham, eigvals, eigvecs, n_t, b_t, omega, p.dt,
-                weights if diagonal else None, budget_bytes)
+                ham, eigvals, eigvecs, n_t, b_t, omega, p.dt, rows,
+                budget_bytes)
             if diagonal:
                 shifts = numeric._second_order_diag_shifts(
                     eigvals, n_t, b_t, step, cumul_padded, omega, p.dt,
-                    weights, budget_bytes)
+                    rows, budget_bytes)
                 if incomplete is not None:
                     shifts = shifts + incomplete
                 delta = shifts.real

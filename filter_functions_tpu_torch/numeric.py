@@ -1241,19 +1241,19 @@ def _second_order_factored_contract(omega, eigvals, dt, nob: torch.Tensor
 
 def _weighted_lattice(left, right, zterms, weights: torch.Tensor
                       ) -> torch.Tensor:
-    """sum_o weights[a, o] L[..., o, ij, mn] (..., n_nops, d^2, d^2) of a
+    """sum_o weights[s, o] L[..., o, ij, mn] (..., n_s, d^2, d^2) of a
     lattice given as separable tables, L = sum_t left_t[o, ij]
     right_t[o, mn] + sum_s Z_s[ij, mn] rho_s[o, mn] (*zterms* the pairs
-    (Z_s, rho_s)): the weights fold into the real mn-indexed tables, one
-    matmul reduces over (t, o), and each Z_s term reduces over o on its
-    own."""
+    (Z_s, rho_s)), one for each of the n_s rows of *weights*: the
+    weights fold into the real mn-indexed tables, one matmul reduces
+    over (t, o), and each Z_s term reduces over o on its own."""
     n_t, n_w, d2 = left.shape[-3:]
     lead = left.shape[:-3]
-    n_nops = weights.shape[0]
+    n_s = weights.shape[0]
     folded = right[..., :, :, None, :] * weights.mT[:, :, None]
     ell = _mm_real(left.reshape(*lead, n_t * n_w, d2).mT,
-                   folded.reshape(*lead, n_t * n_w, n_nops * d2))
-    ell = ell.reshape(*lead, d2, n_nops, d2).transpose(-3, -2)
+                   folded.reshape(*lead, n_t * n_w, n_s * d2))
+    ell = ell.reshape(*lead, d2, n_s, d2).transpose(-3, -2)
     for zt, rho in zterms:
         ell = ell + zt[..., None, :, :] * (weights @ rho)[..., :, None, :]
     return ell
@@ -1261,12 +1261,12 @@ def _weighted_lattice(left, right, zterms, weights: torch.Tensor
 
 def _factored_weighted_lattice(omega, eigvals, dt, weights: torch.Tensor
                                ) -> torch.Tensor:
-    r"""ell[..., g, a, ij, mn] = sum_o weights[a, o] I[..., g, o, ij, mn]
+    r"""ell[..., g, s, ij, mn] = sum_o weights[s, o] I[..., g, o, ij, mn]
     of segments *eigvals* (..., g, d), *dt* (..., g), from the separable
     tables, without the K2 lattice: the weights fold into the real
     mn-indexed tables, one matmul reduces over (t, o), and the general
-    form's f_z term reduces over o on its own.  *weights* (n_nops, n_w)
-    real.  Returns complex (..., g, n_nops, d^2, d^2): weights @ the K2
+    form's f_z term reduces over o on its own.  *weights* (n_s, n_w)
+    real.  Returns complex (..., g, n_s, d^2, d^2): weights @ the K2
     lattice of :func:`_second_order_integral_single`."""
     left, right, f_z, r_big = _factored_stacks(omega, eigvals, dt)
     return _weighted_lattice(left, right, [(-f_z, r_big)], weights)
@@ -1561,6 +1561,37 @@ def _spectral_weights(spectrum: torch.Tensor, omega: torch.Tensor, n: int
     return spectrum.expand(n, -1) * trapezoid_weights(omega) / (2 * math.pi)
 
 
+def _distinct_rows(spectrum: torch.Tensor) -> int:
+    """n_s, the distinct rows of a parsed real diagonal spectrum (ndim 1
+    or 2), read from its shape and strides, not its values: 1 where one
+    row serves every noise operator (ndim 1, or rows that are one
+    stride-0 row), else one for each noise operator."""
+    if spectrum.ndim == 1 or spectrum.stride(0) == 0:
+        return 1
+    return spectrum.shape[0]
+
+
+def _by_row(x: torch.Tensor, ell: torch.Tensor) -> torch.Tensor:
+    """x @ ell of x (..., n_nops, k, ij) and ell (..., n_s, ij, mn), row s
+    of ell serving n_nops / n_s consecutive operators (n_s = 1 or
+    n_nops): one matmul a row, with no broadcast copy of ell.  Returns
+    (..., n_nops, k, mn)."""
+    *lead, n_nops, k, d2 = x.shape
+    n_s = ell.shape[-3]
+    return (x.reshape(*lead, n_s, n_nops // n_s * k, d2) @ ell).reshape(
+        *lead, n_nops, k, ell.shape[-1])
+
+
+def _shifts_chunk(eigvals: torch.Tensor, n_w: int, n_s: int,
+                  budget_bytes: Optional[int] = None) -> int:
+    """Segments per chunk of :func:`_second_order_diag_shifts` and of its
+    degenerate-eigenspace backward (:func:`_factored_chunk`): beside the
+    tables, the weighted right-hand tables of the n_s rows of the
+    weights and the product's workspace."""
+    d = eigvals.shape[-1]
+    return _factored_chunk(eigvals, n_w, 8 * n_s * d * d, budget_bytes)
+
+
 def _folded_decay_amplitudes(control_matrix: torch.Tensor,
                              weights: torch.Tensor) -> torch.Tensor:
     """Gamma[..., a, k, l] = sum_w weights[a, w] B*_{ak}(w) B_{al}(w) of
@@ -1579,41 +1610,41 @@ def _second_order_diag_shifts(eigvals, n_opers_transformed,
     (a, b, k, l, w) second-order filter function.
 
     A diagonal spectrum reads only the a == b diagonal of F^(2).  The
-    complete steps contract over (g, w) jointly in one a-batched
-    matmul; the incomplete steps reduce each chunk of segments over w
-    first, to ell (g, a, ij, mn) from the separable tables of the K2
-    lattice (:func:`_factored_weighted_lattice`), and sandwich the
-    result between the noise-operator/basis products.  The chunks fit
-    :func:`.config.memory_budget` (*budget_bytes* overrides it).
+    complete steps contract over w in one (g, a)-batched matmul and sum
+    over g; the incomplete steps reduce each chunk of segments over w
+    first, to ell (g, s, ij, mn) from the separable tables of the K2
+    lattice (:func:`_factored_weighted_lattice`), once for each of the
+    n_s rows of *weights*, and sandwich the result between the
+    noise-operator/basis products (:func:`_by_row`).  The chunks fit
+    :func:`.config.memory_budget` (*budget_bytes* overrides it) with the
+    tables of n_s rows.
 
-    Shapes as :func:`_second_order_total`; *weights* (n_nops, n_w)
-    real, S_a(w) w_trapz / 2 pi.  Returns complex (..., n_nops, n_b,
-    n_b); its real part is the physical shift.
+    Shapes as :func:`_second_order_total`; *weights* (n_s, n_w) real,
+    S(w) w_trapz / 2 pi, with n_s = 1 (one spectrum for every noise
+    operator: one lattice serves them all) or n_nops.  Returns complex
+    (..., n_nops, n_b, n_b); its real part is the physical shift.
     """
     with tracing.span('ff.so.shifts'):
-        G, d = eigvals.shape[-2:]
-        lead = eigvals.shape[:-2]
-        n_nops, n_basis, n_w = ctrlmat_step.shape[-3:]
+        G, n_w = eigvals.shape[-2], omega.shape[-1]
+        n_s = weights.shape[0]
+        tracing.counts['so.shifts.calls'] += 1
+        if n_s == 1:
+            tracing.counts['so.shifts.shared'] += 1
+
+        # complete steps: conj(sum_g (B_step w)[g, a] @ B_cumul[g, a]^H),
+        # the conjugate transpose read in place
+        shifts = ((ctrlmat_step * weights[:, None, :])
+                  @ cumul_padded.mH).sum(-4).conj()
+
         nob = _noise_basis_products(n_opers_transformed, basis_transformed)
-        w = weights.to(config.COMPLEX)
-
-        # complete steps: (a, k, (g o)) @ (a, (g o), l), weight folded
-        xs = _perm_tail(ctrlmat_step.conj(), 1, 2, 0, 3).reshape(
-            *lead, n_nops, n_basis, G * n_w) * w.repeat(1, G)[:, None, :]
-        ys = _perm_tail(cumul_padded, 1, 0, 3, 2).reshape(*lead, n_nops,
-                                                          G * n_w, n_basis)
-        shifts = xs @ ys
-        del xs, ys          # control-matrix-sized: not held by the chunks
-
-        # the weighted right-hand tables and the product's workspace
-        chunk = _factored_chunk(eigvals, n_w, 8 * n_nops * d * d,
-                                budget_bytes)
+        chunk = _shifts_chunk(eigvals, n_w, n_s, budget_bytes)
         for start in range(0, G, chunk):
             sl = slice(start, start + chunk)
             ell = _factored_weighted_lattice(omega, eigvals[..., sl, :],
                                              dt[..., sl], weights)
-            nob_c = nob[..., sl, :, :, :]                 # (g, a, k, ij)
-            shifts = shifts + (nob_c @ (ell @ nob_c.mT)).sum(-4)
+            # (g, a, k, ij), copied once for both products
+            nob_c = nob[..., sl, :, :, :].contiguous()
+            shifts = shifts + (_by_row(nob_c, ell) @ nob_c.mT).sum(-4)
         return shifts
 
 
@@ -1634,7 +1665,7 @@ class _DegenerateIncompleteSteps(torch.autograd.Function):
 
     forward(h (..., G, d, d), w, v, n_opers_transformed, basis_transformed,
     omega, dt, weights, budget_bytes), all but h detached.  With
-    *weights* (n_nops, n_w) the term of the diagonal shifts
+    *weights* (n_s, n_w) the term of the diagonal shifts
     (:func:`_second_order_diag_shifts`): zeros (..., n_nops, n_b, n_b)
     complex; without, of F^(2) (:func:`_second_order_total`): zeros
     (..., n_nops, n_nops, n_b, n_b, n_w).
@@ -1660,8 +1691,8 @@ class _DegenerateIncompleteSteps(torch.autograd.Function):
         A = n_nops * n_basis
         lead = w.shape[:-2]
         if weights is not None:
-            chunk = _factored_chunk(w, n_w, 8 * n_nops * d * d,
-                                    ctx.budget_bytes)
+            chunk = _shifts_chunk(w, n_w, weights.shape[0],
+                                  ctx.budget_bytes)
             cg = g.conj()[..., None, :, :, :]             # (1, a, k, l)
         else:
             # per segment the four (n_w, A, d^2) products of the cotangent
@@ -1682,7 +1713,8 @@ class _DegenerateIncompleteSteps(torch.autograd.Function):
             if weights is not None:
                 dell1, dell2 = (_weighted_lattice(*slot, weights)
                                 for slot in slots)
-                w_mat = (cg @ nob) @ dell1.mT + cg.mT @ (nob @ dell2)
+                w_mat = (_by_row(cg @ nob, dell1.mT)
+                         + cg.mT @ _by_row(nob, dell2))
             else:
                 w_mat = _cross_slope_coeff(cg, nob.flatten(-3, -2),
                                            *slots).unflatten(

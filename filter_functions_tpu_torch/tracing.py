@@ -25,7 +25,9 @@ Span                   Where
 ``ff.so.shifts``       :func:`.numeric._second_order_diag_shifts`: the
                        frequency shifts of a diagonal spectrum, the
                        complete-step product and the chunks of the
-                       separable K2 tables
+                       separable K2 tables, whose weighted lattice is
+                       built once per distinct spectrum row (once for
+                       all noise operators where they share one row)
 ``ff.so.total``        :func:`.numeric._second_order_total`: F^(2) of a
                        cross-spectrum, the same two parts
 ``ff.etm.cumulant``    in ``ff.etm``: the cumulant function
@@ -47,7 +49,8 @@ The backward has no span of its own: autograd opens
 
 :data:`counts` counts the host's reads of the device and the escalation
 decisions, each at the site that makes it, after the value is on the
-host, and the work of the slice products; clear it with
+host, the work of the slice products, and how often the frequency
+shifts share one lattice among the noise operators; clear it with
 ``counts.clear()``.
 
 ===========================  ============================================
@@ -68,6 +71,11 @@ Counter                      Incremented by
                              int8 operations of its slice products,
                              3 B sum_pairs 2 M K N (unpadded, on every
                              device)
+``so.shifts.calls``          each call of :func:`.numeric.
+                             _second_order_diag_shifts`
+``so.shifts.shared``         each such call that built one weighted K2
+                             lattice for all noise operators (one
+                             spectrum row)
 ===========================  ============================================
 
 The port's other counters stay in their modules:

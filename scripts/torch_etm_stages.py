@@ -169,7 +169,7 @@ def second_order(device, card, log):
             st['step'], st['step'].cumsum(-4)[..., :-1, :, :, :])
         st['delta'] = numeric._second_order_diag_shifts(
             st['eigvals'], n_t, b_t, st['step'], padded, omega, p.dt,
-            st['w']).real
+            st['w'][:numeric._distinct_rows(s)]).real
 
     def trace(st):
         st['k'] = (numeric._cumulant_contract_core(st['gamma'], tg)

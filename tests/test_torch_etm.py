@@ -16,7 +16,7 @@ import filter_functions_tpu as ff
 import filter_functions_tpu_torch as fft
 from filter_functions_tpu import functional as jfunctional
 from filter_functions_tpu import numeric as jnumeric
-from filter_functions_tpu_torch import convert, functional, numeric
+from filter_functions_tpu_torch import convert, functional, numeric, tracing
 from filter_functions_tpu_torch.superoperator import liouville_is_CP
 from testutil import make_pulse, rand_pulse_arrays
 from torch_testutil import fft_cpu
@@ -443,3 +443,35 @@ def test_second_order_etm_gradient_in_segment_chunks(kind):
         for budget_bytes in (None, 1))
     np.testing.assert_allclose(chunked.numpy(), whole.numpy(), rtol=0,
                                atol=1e-13 * whole.abs().max().item())
+
+
+@pytest.mark.parametrize('entry', ['functional', 'batched'])
+@pytest.mark.parametrize('make', [_degenerate_pulse,
+                                  _partially_degenerate_pulse],
+                         ids=['degenerate', 'partial'])
+def test_second_order_etm_gradient_one_row_equals_equal_rows(make, entry):
+    """A spectrum shared by both noise operators, given 1-d (one weighted
+    K2 lattice for both, in the shifts and in the backward of their
+    degenerate-eigenspace term) and as two materialised equal rows (one
+    lattice each): at the degenerate pulses above, the second-order ETM
+    within 1e-13 and its gradient within 1e-13 of its largest entry."""
+    p, basis = make()
+    if entry == 'batched':
+        p = _batched(p)
+    omega = np.geomspace(0.1, 30, 64)
+    shared = 30 * _spectrum('shared', omega)
+    rng = np.random.default_rng(18)
+    weights = torch.tensor(rng.standard_normal(
+        (*p.c_coeffs.shape[:-2], len(basis), len(basis))))
+    etms, grads = [], []
+    for spectrum, n_shared in ((shared, 1), (np.tile(shared, (2, 1)), 0)):
+        before = tracing.counts['so.shifts.shared']
+        etms.append(functional._etm_core(p, spectrum, torch.as_tensor(omega),
+                                         basis, True))
+        grads.append(_etm_grad(
+            _etm_loss(p, basis, spectrum, omega, True, weights), p.c_coeffs))
+        assert tracing.counts['so.shifts.shared'] - before == 2 * n_shared
+    np.testing.assert_allclose(etms[0].numpy(), etms[1].numpy(), rtol=0,
+                               atol=1e-13)
+    np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(), rtol=0,
+                               atol=1e-13 * grads[1].abs().max().item())

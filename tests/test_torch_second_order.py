@@ -17,7 +17,7 @@ import torch
 
 import filter_functions_tpu_torch as fft
 from filter_functions_tpu import numeric as jnumeric
-from filter_functions_tpu_torch import numeric
+from filter_functions_tpu_torch import numeric, tracing, util
 from testutil import make_pulse, rand_pulse_arrays
 from torch_testutil import fft_cpu
 
@@ -248,46 +248,107 @@ def test_second_order_chunking_and_intermediates():
     _close(reused, whole, 1e-13)
 
 
-@pytest.mark.parametrize('kind', ['shared', 'per_operator'])
+def _shift_inputs(seed=31, n_omega=30):
+    """A random d = 3 pulse of 4 segments and 3 noise operators: the
+    arguments of ``numeric._second_order_diag_shifts`` before the
+    weights (eigvals, n_t, b_t, step, padded cumulative, omega, dt)."""
+    _, p = _pair(3, 4, seed)
+    omega = _t(np.geomspace(0.1, 20, n_omega))
+    p.diagonalize()
+    n_t, b_t, step, cumul = numeric._second_order_step_terms(
+        p.eigvals, p.eigvecs, p.propagators, omega, p.basis.tensor('cpu'),
+        p.n_opers_dev, _t(p.n_coeffs), _t(p.dt), _t(p.t))
+    return (p.eigvals, n_t, b_t, step, numeric._pad_cumulative(step, cumul),
+            omega, _t(p.dt))
+
+
+@pytest.mark.parametrize('kind', ['shared', 'per_operator', 'one_row'])
 def test_diag_shifts_match_integrated_f2(kind):
     """The frequency shifts of a diagonal spectrum without F2 (the
     functional path's route) against the integral of the full F2's
     a == b diagonal, within 1e-12 max|Delta|; with a memory budget of
     one segment per chunk equal to the single chunk within 1e-13; also
-    batched over two pulses, each equal to its single evaluation."""
-    _, p = _pair(3, 4, 31)
-    omega = _t(np.geomspace(0.1, 20, 30))
+    batched over two pulses, each equal to its single evaluation.  A
+    shared spectrum as three equal rows of weights ('shared') or as the
+    one row that serves all three operators ('one_row')."""
+    eigvals, n_t, b_t, step, padded, omega, dt = _shift_inputs()
     s = 1e-3 / omega
     if kind == 'per_operator':
         s = torch.outer(_t([1.0, 0.5, 2.0]), s)
-    p.diagonalize()
-    n_t, b_t, step, cumul = numeric._second_order_step_terms(
-        p.eigvals, p.eigvecs, p.propagators, omega, p.basis.tensor('cpu'),
-        p.n_opers_dev, _t(p.n_coeffs), _t(p.dt), _t(p.t))
-    padded = numeric._pad_cumulative(step, cumul)
     weights = numeric._spectral_weights(s, omega, 3)
-    got = numeric._second_order_diag_shifts(p.eigvals, n_t, b_t, step,
-                                            padded, omega, _t(p.dt), weights)
-    f2 = numeric._second_order_total(p.eigvals, n_t, b_t, step, padded,
-                                     omega, _t(p.dt))
+    if kind == 'one_row':
+        weights = weights[:1]
+    got = numeric._second_order_diag_shifts(eigvals, n_t, b_t, step,
+                                            padded, omega, dt, weights)
+    f2 = numeric._second_order_total(eigvals, n_t, b_t, step, padded,
+                                     omega, dt)
     want = numeric._integrate_2pi(numeric._get_integrand(
         s, omega, np.arange(3), 'total', 'generalized', filter_function=f2),
         omega)
     _close(got.real, want)
-    assert numeric._factored_chunk(p.eigvals, 30, 0) == len(p.eigvals)
-    assert numeric._factored_chunk(p.eigvals, 30, 0, budget_bytes=1) == 1
+    assert numeric._factored_chunk(eigvals, 30, 0) == len(eigvals)
+    assert numeric._factored_chunk(eigvals, 30, 0, budget_bytes=1) == 1
     chunked = numeric._second_order_diag_shifts(
-        p.eigvals, n_t, b_t, step, padded, omega, _t(p.dt), weights,
-        budget_bytes=1)
+        eigvals, n_t, b_t, step, padded, omega, dt, weights, budget_bytes=1)
     _close(chunked, got, 1e-13)
-
-    def two(x):
-        return torch.stack([x, x.flip(0) if x.ndim else x])
     stacked = numeric._second_order_diag_shifts(
-        two(p.eigvals), two(n_t), two(b_t), two(step), two(padded), omega,
-        two(_t(p.dt)), weights)
+        *map(_two, (eigvals, n_t, b_t, step, padded)), omega, _two(dt),
+        weights)
     torch.testing.assert_close(stacked[0], got, rtol=0,
                                atol=1e-15 * got.abs().max().item())
+
+
+def _two(x):
+    """A batch of two: *x* and *x* reversed along its first axis."""
+    return torch.stack([x, x.flip(0)])
+
+
+@pytest.mark.parametrize('budget_bytes', [None, 1], ids=['whole', 'chunked'])
+@pytest.mark.parametrize('batched', [False, True], ids=['single', 'batched'])
+def test_diag_shifts_one_row_equals_equal_rows(batched, budget_bytes):
+    """A spectrum shared by the three noise operators, given as its one
+    row of weights (one weighted K2 lattice for all operators) and as
+    three materialised equal rows (one lattice each): the shifts agree
+    within 1e-13 max|Delta|, for one pulse and a batch of two, in one
+    chunk and in chunks of one segment, and the counters say which ran:
+    so.shifts.shared once for the one row, not for the equal rows."""
+    args = _shift_inputs(seed=33)
+    if batched:
+        args = (*map(_two, args[:5]), args[5], _two(args[6]))
+    omega = args[5]
+    rows = numeric._spectral_weights(2e-3 / omega ** 0.8, omega, 3)
+    assert rows.stride(0) != 0
+    tracing.counts.clear()
+    one = numeric._second_order_diag_shifts(*args, rows[:1], budget_bytes)
+    assert dict(tracing.counts) == {'so.shifts.calls': 1,
+                                    'so.shifts.shared': 1}
+    equal = numeric._second_order_diag_shifts(*args, rows, budget_bytes)
+    assert dict(tracing.counts) == {'so.shifts.calls': 2,
+                                    'so.shifts.shared': 1}
+    tracing.counts.clear()
+    _close(one, equal, 1e-13)
+
+
+@pytest.mark.parametrize('spectrum, n_s', [
+    (torch.ones(30), 1), (torch.ones(1, 30), 1), (torch.ones(3, 30), 3),
+    (torch.ones(30).expand(3, 30), 1), (np.ones((3, 30)), 3)],
+    ids=['1d', 'one_row', 'equal_rows', 'expanded', 'numpy_rows'])
+def test_distinct_rows_from_shape_and_strides(spectrum, n_s):
+    """n_s of a parsed diagonal spectrum comes from its shape and
+    strides: 1 for one row, given 1-d, (1, n_w) or as an expanded view;
+    one a noise operator for materialised rows, equal or not."""
+    s = util.parse_spectrum(spectrum, torch.ones(30), np.arange(3))
+    assert numeric._distinct_rows(s) == n_s
+
+
+@pytest.mark.parametrize('n_s, chunk', [(1, 5), (18, 1)])
+def test_shifts_chunk_at_the_qft_batch(n_s, chunk):
+    """The shifts' chunks at the second-order ETM of the 4-qubit QFT
+    pulse (batch 4, 13 segments, d = 16, 1000 frequencies) in a 4 GiB
+    budget: 5 segments a chunk with one row of weights, 1 with 18."""
+    eigvals = torch.zeros(4, 13, 16)
+    assert numeric._shifts_chunk(eigvals, 1000, n_s,
+                                 budget_bytes=4 * 2**30) == chunk
 
 
 def test_object_order_two_matches_jax():

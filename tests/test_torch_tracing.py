@@ -236,6 +236,25 @@ def test_spans_of_the_error_transfer_matrix(pulse, second_order):
         assert not _ranges(events, 'ff.so.shifts')
 
 
+@pytest.mark.parametrize('order, kind, shifts', [
+    (1, 'diagonal', {}),
+    (2, 'diagonal', {'so.shifts.calls': 1, 'so.shifts.shared': 1}),
+    (2, 'cross', {})], ids=['first', 'second', 'second_cross'])
+def test_shift_counts_of_the_error_transfer_matrix(pulse, order, kind,
+                                                   shifts):
+    """The second order of a diagonal spectrum calls the shifts once a
+    batch, with one lattice for the pulses' one noise operator; the
+    first order and a cross-spectrum call them not at all.  Each call
+    reads the device once, for the exponential."""
+    p, spectrum, omega = pulse
+    if kind == 'cross':
+        spectrum = spectrum[None, None]
+    with _delta() as got:
+        functional.batched_error_transfer_matrix(
+            p, spectrum, omega, Basis.ggm(D), second_order=order == 2)
+    assert got == {'sync.expm': 1, **shifts}
+
+
 def test_cross_spectrum_takes_the_total_span(pulse):
     """A cross-spectrum's second order runs F^(2) in ff.so.total, inside
     ff.etm between ff.etm.steps and ff.etm.cumulant, and no
