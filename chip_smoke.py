@@ -1,12 +1,17 @@
 """Smoke run of the PyTorch port (filter_functions_tpu_torch) on one CUDA
-card.
+card: the quickest proof that the port is correct there.
 
     python3 chip_smoke.py
 
-Phases, in order; any failure ends the run with a non-zero exit code:
+It checks; it does not time the port, which the benchmark does
+(``BENCHMARK.json``, ``perfbench/``).  Its only times are the kernels'
+alone in phases 3 and 3b, which the kernels' JSON record carries.
+
+Phases, in order (their numbers name them in the records; there is no
+phase 5); any failure ends the run with a non-zero exit code:
 
 1. card: a CUDA card must be present; prints its name and power limit.
-2. build: compiles the CUDA kernel from ``csrc/`` and prints nvcc's
+2. build: compiles the CUDA kernels from ``csrc/`` and prints nvcc's
    register / shared-memory / spill report.
 3. kernel: ``dword_digits`` on the card against its plain PyTorch
    version on the card, bit-exact, at the seven shapes of
@@ -16,19 +21,20 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    flagship at batch 1 (the object path's call, phases 6, 7a, 9a, 9b);
    K = 13312 at batch 1 (phase 9c's 52-segment pulse from scratch: the
    instance that keeps two runs of words a thread); K = 3328, J = 3 at
-   batch 1 (phase 10a's crosstalk rows).  Times the
-   flagship call of both beside its memory bound and the card's name and
-   power limit.
+   batch 1 (phase 10a's crosstalk rows).  Times the flagship call and
+   the crosstalk call of both by CUDA events, beside the kernel's memory
+   floor (``perfbench.lib.roofline.dword_digits_bound_s``) and the
+   card's name and power limit.
 3b. slice products: ``ops.ozaki._outer_contract`` on the card (one
    launch of the ``ozaki_products`` kernel) against the composite
    ``_outer_contract_plain`` on the card, bit-exact, at the cells' chunk
    (batch 2, M = 1000, K = 3328, N = 4608) and at the CPMG-300 train's
    shape (batch 1, M = 100, K = 2404, N = 4), on random 7-bit digits and
-   power-of-two scales from a seeded CUDA generator.
-   Times the chunk's call beside its bound (its int8 operations at
-   1979 T/s), the composite's time and ``torch._int_mm``'s 90 GEMMs of
-   the same slice pairs alone (``library_ms``; the port no longer calls
-   them on CUDA).
+   power-of-two scales from a seeded CUDA generator.  Times the chunk's
+   call beside its bound (its int8 operations, as
+   ``tracing.counts['ozaki.int8_ops']`` counts them, at 1979 T/s), the
+   composite's time and ``torch._int_mm``'s 90 GEMMs of the same slice
+   pairs alone (``library_ms``; the port does not call them on CUDA).
 4. main path: ``functional.batched_infidelity`` on the 4-qubit QFT pulse
    at 1000 frequencies, batch 32 in chunks of 2 (bench.py's flagship
    inputs), through the default CUDA route (the factored Ozaki route).
@@ -37,15 +43,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the escalation statistic stays below its threshold, that row 0 is
    within 1e-10 of the native complex128 route on the card, and that
    the card's native row 0 is within 1e-12 of the CPU's.
-5. timing: median of 5 runs of both routes, in ms per pulse.
 6. object path: ``fft.infidelity`` on the QFT pulse built with
    ``PulseSequence.from_arrays`` on the card, at 1000 frequencies,
    through the default CUDA route.  Checks that the kernel launched,
    that the (18,) result is finite, within 1e-10 of phase 4's native
    row 0 and within 1e-12 of its Ozaki row 0, that a second call with
    the same frequencies launches nothing, and that the filter function
-   is (18, 18, 1000) complex128; times 5 cold calls (caches cleared),
-   median in ms, and reports the peak device memory of the phase.
+   is (18, 18, 1000) complex128.
 7. error transfer matrix.
    a. ``fft.error_transfer_matrix`` of the QFT pulse on the card, first
       order, 1000 frequencies, through the default CUDA route: the
@@ -55,9 +59,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       completely positive, that -tr K / d^2 of its cumulant function is
       within 1e-12 relative of phase 6's infidelity sum, that it is
       within 1.6e-9 of the ETM from a natively computed control matrix,
-      and that the card's native ETM is within 1e-12 of the CPU's;
-      times 5 cold calls (each must launch the kernel), median in ms,
-      and reports the peak device memory.
+      that the card's native ETM is within 1e-12 of the CPU's, and that
+      a cold call (caches cleared) launches the kernel again.
    b. ``functional.batched_error_transfer_matrix(..., second_order=True)``
       at bench.py's ``config_second_order`` inputs (d = 4, 8 segments,
       2 control and 2 noise operators, 200 frequencies, batch 64, GGM
@@ -65,17 +68,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       (64, 16, 16) shape, rows 0 and 63 within 1e-13 of the object
       path's second-order ETM on the card, the antisymmetry of the
       second-order part of row 0's cumulant function within 1e-15, and
-      rows 0 and 63 within 1e-12 of the CPU; times 5 calls, median in ms
-      per evaluation.
+      rows 0 and 63 within 1e-12 of the CPU.
    c. The second-order term from the separable tables of the K2
       lattice (the port's only from-scratch route) against the
-      (n_omega, d^4) lattice it replaces, each call timed as the median
-      of 5 with the peak device memory of those calls; no kernel
-      launches (the count is checked unchanged).  (i) 7b's inputs: the
-      batched ETM for 1e-4/omega and for a real cross-spectrum (2, 2,
-      200) of 1e-4/omega on the diagonal and 0.5e-4/omega off it (F^(2),
-      not the folded shifts); rows 0 and 63 of each within 1e-13 of the
-      object path's ETM on the cached lattice
+      (n_omega, d^4) lattice it replaces; no kernel launches (the count
+      is checked unchanged).  (i) 7b's inputs: the batched ETM for
+      1e-4/omega and for a real cross-spectrum (2, 2, 200) of 1e-4/omega
+      on the diagonal and 0.5e-4/omega off it (F^(2), not the folded
+      shifts); rows 0 and 63 of each within 1e-13 of the object path's
+      ETM on the cached lattice
       (``cache_filter_function(order=2, cache_intermediates=True)``).
       (ii) The 3-qubit QFT pulse at full width
       (``qft.qft_pulse_arrays(3)``: d = 8, 10 segments, 12 + 12
@@ -90,9 +91,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       lattice holds 1.05 GB per segment.  At each of (i)-(iii) the
       frequency-reduced term of the shifts from the tables against
       weights @ the K2 lattice (``reduced_term``), within 1e-13 (i) and
-      1e-12 (ii, iii) of its largest entry.  Neither package runs the
-      flagship's second-order ETM under a cross-spectrum: F^(2) would be
-      (18, 18, 256, 256, 1000) complex128, about 340 GB.
+      1e-12 (ii, iii) of its largest entry.  At (ii) and (iii) the peak
+      device memory of one segment (:func:`segment_memory`): the K2
+      lattice build at most ``LATTICE_TEMPS`` lattices, the separable
+      tables at most ``numeric._SO_FACTORED_TEMPS`` (n_omega, d^2)
+      tables and the shifts' weighted lattice at most that plus the 8
+      n_s tables of ``numeric._shifts_chunk``: the counts the chunking
+      relies on.  Neither package runs the flagship's second-order ETM
+      under a cross-spectrum: F^(2) would be (18, 18, 256, 256, 1000)
+      complex128, about 340 GB.
    d. Autograd through the flagship's first-order
       ``functional.error_transfer_matrix`` (row 0, 1000 frequencies,
       S = 1e-4/omega, the 256-element basis contracted through the
@@ -105,8 +112,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       within 1e-6 relative of central differences, printed beside the
       derivative without the degenerate-eigenspace terms of the per-step
       control matrices and of the incomplete steps.  No kernel launch
-      (the ETM contracts each segment in complex128); times forward plus
-      backward of each order, with the peak memory.
+      (the ETM contracts each segment in complex128).
 8. gradients.
    a. ``torch.autograd.grad`` of the summed ``functional.
       batched_infidelity`` of phase 4's rows 0-3 (chunks of 2, 1000
@@ -115,21 +121,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       per chunk and the backward pass not at all.  Checks that the
       gradient is finite, within 1e-5 (relative to its largest entry) of
       the native route's gradient on the card, and that the card's
-      native row 0 is within 1e-10 relative of the CPU's; times forward
-      plus backward of both routes, median of 5, in ms per pulse, and
-      reports the peak device memory.
+      native row 0 is within 1e-10 relative of the CPU's.
    b. ``fft.infidelity_derivative`` (the analytic derivative) of the QFT
       pulse on the card at 200 frequencies: summed over the noise
       operators it must be within 1e-9 (relative to the largest entry)
       of the native autograd gradient at the same frequencies.  Prints
       how many eigenvalue pairs of the card's diagonalization are
-      nearly but not exactly degenerate, times 3 cold calls (median)
-      and reports the peak device memory.
+      nearly but not exactly degenerate.
    c. bench.py's ``config_grad`` inputs (d = 2, X/2 and Y/2 controls,
       Z/2 noise, 8 segments, batch 256, 200 frequencies, S = 1e-3/omega,
-      ``default_rng(3)``): autograd of ``batched_infidelity``, median of
-      5 in ms per pulse; row 0 within 1e-12 absolute of the analytic
-      derivative summed over the noise operators.
+      ``default_rng(3)``): autograd of ``batched_infidelity``, row 0
+      within 1e-12 absolute of the analytic derivative summed over the
+      noise operators.
 
 9. concatenation in time (``fft.concatenate``, ``concatenate_periodic``,
    ``a @ b``: the composed pulse's filter function from the cached control
@@ -140,31 +143,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       0 kernel launches (no gate is deep); the composed control matrix is
       within 1e-12 (of its largest entry) of the native from-scratch one,
       its infidelity within 1e-10 of phase 6's, and the default-route
-      from-scratch call launches the kernel once.  Times the cold
-      composition (build the gates, cache, concatenate), median of 5.
+      from-scratch call launches the kernel once.
    b. A periodic train of the flagship, its control matrix cached through
       the default route (1 launch): at 16 repeats ``concatenate_periodic``
       equals ``concatenate([qft] * 16)``, is within 1e-11 of K5 on 16
       copies and within 1e-5 (the deep route's operand quantization) of
       the 208-segment pulse from scratch; at 10^4 repeats the closed form
-      is finite with a total propagator unitary to 1e-10; timed, with its
-      peak memory.
+      is finite with a total propagator unitary to 1e-10.
    c. Four distinct flagship-sized gates (rows 0-3 of phase 4's batch as
       ``PulseSequence``s), control matrices cached through the default
       route (4 launches), concatenated with the pulse-correlation filter
-      function: it sums to the total one; the total control matrix is
-      within 1e-5 of the 52-segment pulse's from scratch (default route,
-      one launch per segment chunk) and, from natively cached parts,
-      within 1e-12 of the CPU's; timed.
-   d. bench.py's small-d configurations at their published sizes, parity
-      and one timing each: ``concat_train`` (10^4 cached NOT pulses, 400
-      frequencies, against ``concatenate_periodic``, and the general path
-      on two alternating objects), ``clifford_train`` (24 distinct pulses
-      of 1-3 segments at 10^4 positions, ``default_rng(11)``, against the
-      CPU), ``dd`` (CPMG-16 and UDD-16 at 400 frequencies against the
-      closed forms; batch 1024), ``rb`` (1024 sequences of 20 Cliffords
-      plus recovery at 301 frequencies, ``default_rng(0)``, against
-      ``rb_pulse`` by ``concatenate`` on four of them).
+      function (0 launches, twice): it sums to the total one; the total
+      control matrix is within 1e-5 of the 52-segment pulse's from
+      scratch (default route, one launch per segment chunk) and, from
+      natively cached parts, within 1e-12 of the CPU's.
+   d. bench.py's small-d configurations at their published sizes:
+      ``concat_train`` (10^4 cached NOT pulses, 400 frequencies, against
+      ``concatenate_periodic``, and the general path on two alternating
+      objects), ``clifford_train`` (24 distinct pulses of 1-3 segments at
+      10^4 positions, ``default_rng(11)``, against the CPU), ``dd``
+      (CPMG-16 and UDD-16 at 400 frequencies against the closed forms),
+      ``rb`` (1024 sequences of 20 Cliffords plus recovery at 301
+      frequencies, ``default_rng(0)``, against ``rb_pulse`` by
+      ``concatenate`` on four of them).
    e. Second order: rows 0 and 1 of phase 7b's inputs as objects,
       concatenated with ``calc_second_order_FF``: within 1e-12 of the
       16-segment pulse's second-order filter function from scratch.
@@ -188,14 +189,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       and against the explicit pulse's, cross blocks included (1e-5), the
       infidelity under a spectrum that correlates each crosstalk operator
       with its Z row (1e-10), and the card against the CPU with the
-      crosstalk rows native (1e-12); times 5 cold extends beside the
-      explicit pulse's cold control matrix, with the peak memory.
+      crosstalk rows native (1e-12).
    b. ``fft.remap`` of 10a's pulse to qubit order (2, 0, 3, 1): the
       cached control matrix is the index permutation of 10a's
       (``torch.equal``), the operators are ``tensor_transpose`` of 10a's,
       and the remapped pulse's native control matrix from scratch agrees
       (1e-12 on the parts' rows, 1e-5 on the crosstalk rows); 0
-      launches; timed.
+      launches.
    c. Spectroscopy: CPMG-8 at 1024 durations in geomspace(0.3, 30)
       (``models.dd``, Z/2 noise), fidelity filter functions at 400
       frequencies in geomspace(0.2, 200) through
@@ -204,7 +204,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       steps).  Checks A s against ``fft.infidelity`` of the interpolated
       spectrum on 8 pulses (1e-10 relative), s >= 0, the forward residual
       (1e-3), the interior nodes (0.15) and the card against the CPU
-      (``S_HAT_PARITY``); times both.
+      (``S_HAT_PARITY``).
    d. ``models.exchange``: ``heisenberg_operators(4)`` and ``cnot_pulse``
       on a .mat file of the published file's fields and shapes, written
       to a temporary directory from ``default_rng(9)`` (n_dt =
@@ -217,8 +217,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       which then never reduces) and a 1 x 1 mesh on cuda:0;
       ``sharded_batched_infidelity`` of phase 4's inputs (batch 32,
       chunks of 2, 1000 frequencies) equals phase 4's result
-      (``torch.equal``) with no collective and 16 kernel launches; timed
-      beside ``functional.batched_infidelity`` in ms/pulse.
+      (``torch.equal``) with no collective and 16 kernel launches.
    b. Two ranks on cuda:0, spawned, on 'gloo' with a ``FileStore`` in a
       temporary directory (NCCL refuses two ranks on one card): rows 0-3
       of phase 4's batch at 1000 frequencies on a 1 x 2 mesh (frequencies
@@ -247,21 +246,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       2), loss finite and falling; on rows 0-3 of phase 4's batch
       (chunks of 2, default route) ``grape_step``'s gradient within
       1e-10 relative of phase 8a's autograd gradient, with 2 launches;
-      ``optimize_pulse`` for 5 steps, finite, with its launches; times a
-      GRAPE step in ms per pulse, with its peak device memory.
+      ``optimize_pulse`` for 5 steps, finite, with its launches.
 
 12. the entry points (``filter_functions_tpu_torch.entry``) and the
     escalation.
    a. ``entry()`` on the card: ``fn(*args)`` is (18,) float64, within
       1e-12 relative of phase 4's Ozaki row 0 and 1e-10 of its native
-      row 0, with exactly one kernel launch per call; times 5 calls,
-      median in ms, with the peak memory.
+      row 0, with exactly one kernel launch in each of two calls.
    b. ``entry.dryrun_multichip(2)``'s rank function,
       ``entry._dryrun_rank(2, 'cuda')``, in phase 11b's two ranks (a spawn
       of its own would add 18-32 s to the run): each rank's mesh and
       coordinate, its loss and block of infidelities within 1e-12
       relative of 11b's dryrun on the same 2 x 1 mesh, no kernel launch
-      (K = 12 is not deep), counted in the rank; prints its seconds.
+      (K = 12 is not deep), counted in the rank.
    c. The CPMG-300 train (tests/test_torch_accuracy_policy.py: d = 2, 601
       segments, K = 2404, 100 frequencies in geomspace(1e-4, 1e2),
       S = 1e-3/omega^2) on the default route, through
@@ -273,9 +270,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
       function) and of the CPU's (relative to the largest entry: at the
       refocusing points two summation orders differ elementwise by ~eps
       1e11; the card's native against the CPU's native, elementwise, is
-      printed as the witness), the unescalated distance beside them;
-      times the escalated, unescalated and native batched calls in 21
-      turns (median and quartiles) and the cold object call.
+      printed as the witness), the unescalated distance beside them.
 
 13. the examples (``examples_torch/``, the counterparts of ``examples/``):
     each ``main([..., '--device', 'cuda'])`` in process at its default
@@ -285,7 +280,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     samples, 301 frequencies; ``periodic_driving``: 10^4 repeats at 400
     frequencies; ``optimal_control``: 300 GRAPE steps of 8 candidates, 16
     segments, 200 frequencies; the others at theirs); prints its lines,
-    its numbers, its ms and its kernel launches.  Checks each example's
+    its numbers and its kernel launches.  Checks each example's
     invariants (the Hadamard and QFT equivalences, complete positivity
     and the Gamma-trace identity, the cache flags and the Sigma_gg'
     identity of the pulse-correlation filter functions, remap's
@@ -297,28 +292,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     port's CPU run of the same example within 1e-10 relative
     (``example_on_card`` lists the exceptions).
 
-After phases 3, 5, 6, 7a, 7b, 7c, 7d, 8, 9, 10, 11 (with 12b), 12a, 12c and
-13 a line ``phase time:``
-gives the host-clock seconds since the one before.  Before the last line
-come the card's label and the kernels' JSON record, in that order; the
-record counts each kernel's launches by path, from phase 4 on, in the
-calls each phase checks (a path that launches is timed outside its
-count).  Every count is of both kernels:
-wherever a path's launches are read, ``ozaki_products``' count must equal
-``dword_digits``' (:func:`_launches`).  The last line is
+Before the last line come the card's label and the kernels' JSON
+record, in that order; the record counts each kernel's launches by path,
+from phase 4 on, in the calls each phase checks.  Every count is of both
+kernels: wherever a path's launches are read, ``ozaki_products``' count
+must equal ``dword_digits``' (:func:`_launches`).  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import copy
-import functools
 import importlib.util
 import io
 import json
-import statistics
 import subprocess
 import sys
 import tempfile
-import time
 from pathlib import Path
 
 import numpy as np
@@ -328,11 +316,14 @@ import torch.distributed
 import filter_functions_tpu_torch as fft
 from filter_functions_tpu_torch import (analytic, basis, config, convert,
                                         entry, functional, numeric, parallel,
-                                        spectroscopy, superoperator, util)
+                                        spectroscopy, superoperator, tracing,
+                                        util)
 from filter_functions_tpu_torch.models import dd, exchange, qft, rb
 from filter_functions_tpu_torch.ops import _build, dword, ozaki, products
 from filter_functions_tpu_torch.parallel import ranks as parallel_ranks
 from filter_functions_tpu_torch.parallel import sharding
+from perfbench.lib.roofline import dword_digits_bound_s
+from perfbench.metrics.int8_products_roofline import INT8_PEAK_OPS_PER_S
 
 sys.path.append(str(Path(__file__).resolve().parent / 'tests'))
 from torch_testutil import products_inputs  # noqa: E402
@@ -340,7 +331,6 @@ from torch_testutil import products_inputs  # noqa: E402
 N_OMEGA = 1000
 BATCH = 32
 CHUNK = 2
-N_TIMED = 5
 #: dword_digits shapes: (K, J, C, n_d, slice_bits, batch).
 KERNEL_SHAPES = {'small': (512, 3, 128, 4, 7, 1),
                  'flagship': (3328, 18, 256, 5, 7, CHUNK),
@@ -349,13 +339,6 @@ KERNEL_SHAPES = {'small': (512, 3, 128, 4, 7, 1),
                  'flagship_one': (3328, 18, 256, 5, 7, 1),
                  'deep_train': (13312, 18, 256, 5, 7, 1),
                  'extend_extra': (3328, 3, 256, 5, 7, 1)}
-#: The H100 SXM's device-memory rate (NVIDIA's data sheet), bytes/s.
-#: There is no published int32 rate, so a kernel's bound here is its
-#: memory floor.
-HBM_BYTES_PER_S = 3.35e12
-#: The H100 SXM's dense int8 tensor-core rate (NVIDIA's data sheet),
-#: operations/s: the bound of the slice products.
-INT8_OPS_PER_S = 1.979e15
 #: ozaki_products shapes: (batch, M, K, N, slice_bits).
 PRODUCTS_SHAPES = {'chunk': (CHUNK, N_OMEGA, 3328, 4608, 7),
                    'cpmg_300': (1, 100, 2404, 4, 7)}
@@ -391,7 +374,8 @@ LATTICE_PARITY = 1e-13
 WIDE_LATTICE_PARITY = 1e-12
 #: Lattice-size complex128 arrays per segment that the K2 lattice build
 #: holds at once (up to four inside it, the result and its frequency
-#: reduction): the chunks of 7c's plain version are counted with it.
+#: reduction): the chunks of 7c's plain version are counted with it, and
+#: :func:`segment_memory` holds the build to it.
 LATTICE_TEMPS = 6
 #: The 3-qubit QFT batch of 7c(ii): (qubits, frequencies, batch).
 QFT3_SHAPE = (3, 1000, 8)
@@ -445,9 +429,9 @@ CLIFFORD_TRAIN_PARITY = 1e-9
 #: package's tests hold them.
 DD_PARITY = 1e-10
 #: (pulses, frequencies) of concat_train and clifford_train; (order,
-#: frequencies, batch) of dd; (sequences, length, frequencies) of rb.
+#: frequencies) of dd; (sequences, length, frequencies) of rb.
 TRAIN_SHAPE = (10_000, 400)
-DD_SHAPE = (16, 400, 1024)
+DD_SHAPE = (16, 400)
 RB_SHAPE = (1024, 20, 301)
 #: extend's cached filter function against B^H B of its cached control
 #: matrix, relative: the same product.
@@ -489,10 +473,6 @@ OPTIMIZE_STEPS = 5
 #: 12c: the escalated CPMG-300 results against the native route's on the
 #: card and on the CPU, relative (the rerun is the native route).
 ESCALATED_PARITY = 1e-12
-#: 12c: rounds of the escalated, unescalated and native calls timed in
-#: turns: the escalation's cost (the native rerun) is smaller than the
-#: spread of one call's host time between runs (PERF.md, phase 12c).
-ESCALATION_ROUNDS = 21
 #: Phase 13: the examples of examples_torch/, run in this order at their
 #: default sizes; those in EXAMPLE_FIGURES take ``--out``.
 EXAMPLES = ('getting_started', 'qft', 'calculating_quantum_processes',
@@ -553,42 +533,6 @@ def _cuda_ms(fn, runs: int) -> float:
     return start.elapsed_time(stop) / runs
 
 
-def _median_ms(fn, runs: int) -> float:
-    """Median host time of *fn*, ending in a synchronization, in ms."""
-    times = []
-    for _ in range(runs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    return statistics.median(times) * 1e3
-
-
-def _in_turns_ms(calls: dict, rounds: int) -> dict:
-    """(median, first and third quartile) of the host time of each of
-    *calls* in ms, each ending in a synchronization, run in turns (one of
-    each per round) so that the host's drift reaches all of them alike."""
-    times = {name: [] for name in calls}
-    for _ in range(rounds):
-        for name, fn in calls.items():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times[name].append((time.perf_counter() - t0) * 1e3)
-    return {name: (statistics.median(t), *statistics.quantiles(t, n=4)[::2])
-            for name, t in times.items()}
-
-
-def dword_bound_ms(K, J, C, n_d, batch) -> float:
-    """Memory floor of one dword_digits call: the int32 factors read
-    once, the int8 digits and int32 shifts written once."""
-    reads = batch * K * 2 * (J + C) * 4
-    writes = batch * 3 * J * C * (n_d * K + 4)
-    return (reads + writes) / HBM_BYTES_PER_S * 1e3
-
-
 def check_kernel(device, card):
     """Phase 3: kernel against plain version, bit-exact; returns the
     flagship shape's (max_abs_err, kernel ms, plain ms, bound ms)."""
@@ -613,7 +557,7 @@ def check_kernel(device, card):
             ms = _cuda_ms(lambda: dword.dword_digits(*factors, n_d, sb), 20)
             plain_ms = _cuda_ms(lambda: dword.dword_digits_reference(
                 *factors, n_d, sb), 5)
-            bound_ms = dword_bound_ms(K, J, C, n_d, batch)
+            bound_ms = dword_digits_bound_s(K, J, C, n_d, batch) * 1e3
             print(f'kernel {name}: dword_digits {ms:.4f} ms, plain '
                   f'version {plain_ms:.4f} ms per call of {batch} pulses; '
                   f'memory bound {bound_ms:.4f} ms, '
@@ -631,8 +575,10 @@ def check_products(device, card) -> dict:
         args = products_inputs(batch, M, K, N, sb, device, seed=K)
         want = ozaki._outer_contract_plain(*args, sb)
         before = products.launches
+        ops = tracing.counts['ozaki.int8_ops']
         got = ozaki._outer_contract(*args, sb)
         torch.cuda.synchronize()
+        ops = tracing.counts['ozaki.int8_ops'] - ops
         if products.launches - before != 1:
             raise AssertionError(f'ozaki_products {name}: '
                                  f'{products.launches - before} launches')
@@ -646,8 +592,7 @@ def check_products(device, card) -> dict:
         if name != 'chunk':
             continue
         n = -(-30 // sb)
-        ops = 3 * batch * (n * (n + 1) // 2) * 2 * M * K * N
-        bound_ms = ops / INT8_OPS_PER_S * 1e3
+        bound_ms = ops / INT8_PEAK_OPS_PER_S * 1e3
         ms = _cuda_ms(lambda: ozaki._outer_contract(*args, sb), 20)
         plain_ms = _cuda_ms(lambda: ozaki._outer_contract_plain(*args, sb), 5)
         pr, pi, ps, outs = args
@@ -706,30 +651,16 @@ def main() -> int:
     card = _card_label()
     print(f'card: {card}; torch {torch.__version__}, CUDA '
           f'{torch.version.cuda}')
-    clock = [time.perf_counter()]
-
-    def lap(phases):
-        """Prints the host-clock seconds since the last lap."""
-        now = time.perf_counter()
-        print(f'phase time: {phases} {now - clock[0]:.2f} s')
-        clock[0] = now
 
     # 2. build
-    t0 = time.perf_counter()
-    lib, report = _build.build('dword_digits')
-    print(f'build: {lib.name} in {time.perf_counter() - t0:.1f} s '
-          '(nvcc -Xptxas -v):')
-    print(report.strip())
-    t0 = time.perf_counter()
-    lib, report = _build.build('ozaki_products')
-    print(f'build: {lib.name} in {time.perf_counter() - t0:.1f} s '
-          '(nvcc -Xptxas -v):')
-    print(report.strip())
+    for name in ('dword_digits', 'ozaki_products'):
+        lib, report = _build.build(name)
+        print(f'build: {lib.name} (nvcc -Xptxas -v):')
+        print(report.strip())
 
     # 3. kernels against plain versions
     kernel_err, kernel_ms, plain_ms, bound_ms = check_kernel(device, card)
     products_entry = check_products(device, card)
-    lap('2-3b')
 
     # 4. main path
     batched, omega, spectrum = flagship_inputs(device)
@@ -781,80 +712,54 @@ def main() -> int:
         raise AssertionError('the card and the CPU disagree on the native '
                              'route')
 
-    # 5. timing
-    for name in ('ozaki', 'native'):
-        ms = _median_ms(lambda: functional.batched_infidelity(
-            batched, spectrum, omega, chunk_size=CHUNK, contract=name),
-            N_TIMED)
-        print(f'timing: {name} route {ms / BATCH:.4f} ms/pulse (median of '
-              f'{N_TIMED}, batch {BATCH}, chunk {CHUNK}) [{card}]')
-    print(f'peak device memory: '
-          f'{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB')
-    lap('4-5')
-
     # 6. object path
-    object_launches, object_infid = object_path(device, card, native[0],
-                                                infid[0])
-    lap('6')
+    object_launches, object_infid = object_path(device, native[0], infid[0])
 
     # 7. error transfer matrix
-    etm_launches = etm_flagship(device, card, object_infid)
-    lap('7a')
-    etm_second_order(device, card)
-    lap('7b')
-    table_launches = second_order_tables(device, card)
-    lap('7c')
-    etm_grad_launches = etm_gradient(device, card)
-    lap('7d')
+    etm_launches = etm_flagship(device, object_infid)
+    etm_second_order(device)
+    table_launches = second_order_tables(device)
+    etm_grad_launches = etm_gradient(device)
 
     # 8. gradients
-    grad_launches, grad_8a = autograd_flagship(device, card, batched, omega,
+    grad_launches, grad_8a = autograd_flagship(device, batched, omega,
                                                spectrum)
-    analytic_flagship(device, card)
-    grad_config(device, card)
-    lap('8')
+    analytic_flagship(device)
+    grad_config(device)
 
     # 9. concatenation in time
     concat_launches = {
-        **concat_flagship(device, card, object_infid),
-        **concat_periodic(device, card),
-        **concat_distinct(device, card, batched),
-        'concatenate (d = 2 trains, dd, rb)': concat_small(device, card),
-        'concatenate (second order)': concat_second_order(device, card),
+        **concat_flagship(device, object_infid),
+        **concat_periodic(device),
+        **concat_distinct(device, batched),
+        'concatenate (d = 2 trains, dd, rb)': concat_small(device),
+        'concatenate (second order)': concat_second_order(device),
         'second-order tables (7c)': table_launches}
-    lap('9')
 
     # 10. composition in space, spectroscopy, exchange
-    extended, space_launches = extend_flagship(device, card)
-    space_launches.update(remap_extended(device, card, extended))
+    extended, space_launches = extend_flagship(device)
+    space_launches.update(remap_extended(device, extended))
     del extended
     space_launches['spectroscopy (CPMG-8 family)'] = spectroscopy_cpmg(
-        device, card)
-    space_launches['models.exchange.cnot_pulse'] = exchange_cnot(device,
-                                                                 card)
+        device)
+    space_launches['models.exchange.cnot_pulse'] = exchange_cnot(device)
     concat_launches.update(space_launches)
-    lap('10')
 
     # 11. the sharded paths
-    mesh, shard_launches = sharded_flagship(device, card, batched, omega,
-                                            spectrum, infid)
+    mesh, shard_launches = sharded_flagship(device, batched, omega, spectrum,
+                                            infid)
     concat_launches.update(shard_launches)
-    concat_launches.update(two_ranks(device, card, batched, omega, infid,
-                                     grad_8a))
-    concat_launches.update(grape_flagship(device, card, mesh, batched, omega,
+    concat_launches.update(two_ranks(batched, omega, infid, grad_8a))
+    concat_launches.update(grape_flagship(device, mesh, batched, omega,
                                           spectrum, grad_8a))
     torch.distributed.destroy_process_group()
-    lap('11')
 
     # 12. the entry points and the escalation
-    entry_launches = entry_flagship(device, card, infid[0], native[0])
-    lap('12a')
-    concat_launches.update(cpmg_pathology(device, card))
-    lap('12c')
+    entry_launches = entry_flagship(device, infid[0], native[0])
+    concat_launches.update(cpmg_pathology(device))
 
     # 13. the examples
-    concat_launches.update(examples_on_card(device, card))
-    lap('13')
+    concat_launches.update(examples_on_card())
 
     # each path's count is both kernels' (_launches)
     by_path = {
@@ -886,13 +791,12 @@ def main() -> int:
     return 0
 
 
-def object_path(device, card, native_row0, ozaki_row0):
+def object_path(device, native_row0, ozaki_row0):
     """Phase 6: the object API on the flagship; returns the kernel's
     launches in the first call and the infidelities."""
     pulse = qft.qft_pulse_sequence(4, device=device)
     omega = torch.from_numpy(np.geomspace(1e-2, 1e2, N_OMEGA)).to(device)
     spectrum = 1e-4 / omega
-    torch.cuda.reset_peak_memory_stats(device)
     _reset_launches()
     infid = fft.infidelity(pulse, spectrum, omega)
     torch.cuda.synchronize()
@@ -931,29 +835,19 @@ def object_path(device, card, native_row0, ozaki_row0):
                              f'{filter_function.dtype}')
     print('object path: the cached second call launched nothing; filter '
           f'function {tuple(filter_function.shape)} {filter_function.dtype}')
-    peak = torch.cuda.max_memory_allocated(device)
-
-    def cold():
-        pulse.cleanup('all')
-        fft.infidelity(pulse, spectrum, omega)
-    print(f'timing: object path {_median_ms(cold, N_TIMED):.4f} ms per '
-          f'cold call (median of {N_TIMED}, caches cleared before each); '
-          f'peak device memory {peak / 2**30:.2f} GiB [{card}]')
     return launches, infid
 
 
-def etm_flagship(device, card, infid) -> int:
+def etm_flagship(device, infid) -> int:
     """Phase 7a: the first-order ETM of the flagship through the object
     API; returns the kernel's launches in the first call."""
     omega = torch.from_numpy(np.geomspace(1e-2, 1e2, N_OMEGA)).to(device)
     spectrum = 1e-4 / omega
     pulse = qft.qft_pulse_sequence(4, device=device)
-    torch.cuda.reset_peak_memory_stats(device)
     _reset_launches()
     etm = fft.error_transfer_matrix(pulse, spectrum, omega)
     torch.cuda.synchronize()
     launches = _launches()
-    peak = torch.cuda.max_memory_allocated(device)
     print(f'etm flagship: fft.error_transfer_matrix(PulseSequence) on '
           f'{pulse.device}, basis of {len(pulse.basis)}, dword_digits '
           f'launches {launches}')
@@ -995,16 +889,11 @@ def etm_flagship(device, card, infid) -> int:
         raise AssertionError('the card and the CPU disagree on the ETM')
     if not is_cp:
         raise AssertionError('the ETM is not completely positive')
-
-    def cold():
-        pulse.cleanup('all')
-        _reset_launches()
-        fft.error_transfer_matrix(pulse, spectrum, omega)
-        if _launches() <= 0:
-            raise AssertionError('a cold ETM call launched no kernel')
-    print(f'timing: etm flagship {_median_ms(cold, N_TIMED):.4f} ms '
-          f'per cold call (median of {N_TIMED}, caches cleared before '
-          f'each); peak device memory {peak / 2**30:.2f} GiB [{card}]')
+    pulse.cleanup('all')
+    _reset_launches()
+    fft.error_transfer_matrix(pulse, spectrum, omega)
+    if _launches() <= 0:
+        raise AssertionError('a cold ETM call launched no kernel')
     return launches
 
 
@@ -1036,7 +925,7 @@ def second_order_inputs(device):
     return p, host, basis, omega, 1e-4 / omega
 
 
-def etm_second_order(device, card) -> None:
+def etm_second_order(device) -> None:
     """Phase 7b: the batched second-order ETM at config_second_order's
     shapes."""
     d, _, _, batch = SO_SHAPE
@@ -1086,28 +975,6 @@ def etm_second_order(device, card) -> None:
         raise AssertionError('the second-order cumulant is not '
                              'antisymmetric')
 
-    ms = _median_ms(lambda: functional.batched_error_transfer_matrix(
-        p, spectrum, omega, basis, second_order=True), N_TIMED)
-    print(f'timing: etm second order {ms / batch:.4f} ms per evaluation '
-          f'(median of {N_TIMED} calls of batch {batch}) [{card}]')
-
-
-def _timed(fn, device, card, label, per, unit):
-    """fn(): a first call whose result is returned, then the median of
-    N_TIMED calls in ms per *unit* (the call over *per*) and the peak
-    device memory of those calls, printed with the memory held before
-    them."""
-    out = fn()
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated(device)
-    torch.cuda.reset_peak_memory_stats(device)
-    ms = _median_ms(fn, N_TIMED)
-    peak = torch.cuda.max_memory_allocated(device)
-    print(f'timing: {label} {ms / per:.4f} ms per {unit} (median of '
-          f'{N_TIMED}); peak device memory {peak / 2**30:.3f} GiB, '
-          f'{held / 2**30:.3f} GiB held before [{card}]')
-    return out
-
 
 def reduced_term(omega, eigvals, dt, weights, lattice=False):
     """The frequency-reduced incomplete-step term ell[..., g, s, ij, mn]
@@ -1143,19 +1010,14 @@ def reduced_term(omega, eigvals, dt, weights, lattice=False):
     return torch.cat(parts, -4)
 
 
-def _reduced_terms_agree(name, omega, eigvals, dt, weights, device, card,
-                         per, bound):
-    """Times the frequency-reduced term from the tables and from the K2
-    lattice (:func:`reduced_term`) and checks them within *bound* of
-    the largest entry."""
-    got = {kind: _timed(lambda: reduced_term(omega, eigvals, dt, weights,
-                                             kind == 'K2 lattice'),
-                        device, card, f'{name}, frequency-reduced term from '
-                        f'the {kind}', per, 'evaluation')
-           for kind in ('separable tables', 'K2 lattice')}
-    want = got['K2 lattice']
+def _reduced_terms_agree(name, omega, eigvals, dt, weights, bound):
+    """Checks the frequency-reduced term from the tables against the one
+    from the K2 lattice (:func:`reduced_term`) within *bound* of the
+    largest entry."""
+    tables = reduced_term(omega, eigvals, dt, weights)
+    want = reduced_term(omega, eigvals, dt, weights, lattice=True)
     scale = want.abs().max().item()
-    rel = (got['separable tables'] - want).abs().max().item() / scale
+    rel = (tables - want).abs().max().item() / scale
     print(f'{name}: frequency-reduced term {tuple(want.shape)}, tables '
           f'against lattice max |diff| {rel:.6e} of the largest entry '
           f'{scale:.6e} (bound {bound})')
@@ -1194,11 +1056,53 @@ def flagship_shift_inputs(device):
     return eigvals, n_t, b_t, step, cumul_padded, omega, p.dt, rows
 
 
-def second_order_tables(device, card) -> int:
+def _peak_above(fn, device) -> int:
+    """Peak device bytes of fn() above what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(device) - base
+
+
+def segment_memory(name, omega, eigvals, dt, weights):
+    """The peak device memory of one segment (with its leading batch
+    axes) of the K2 lattice build, in lattices, against LATTICE_TEMPS; of
+    the separable tables, in (n_w, d^2) tables, against
+    ``numeric._SO_FACTORED_TEMPS``; and of the shifts' weighted lattice
+    of the n_s rows of *weights*, against that plus the 8 n_s tables
+    that ``numeric._shifts_chunk`` counts beside them."""
+    ev, seg_dt = eigvals[..., :1, :], dt[..., :1]
+    d2 = ev.shape[-1] ** 2
+    n_s = weights.shape[0]
+    batch = ev.shape[:-2].numel()
+    table = batch * len(omega) * d2 * 16        # one (n_w, d^2) complex128
+    measured = {
+        'K2 lattice build': (_peak_above(
+            lambda: numeric._second_order_integral_single(omega, ev, seg_dt),
+            ev.device) / (table * d2), 'lattices', LATTICE_TEMPS),
+        'separable tables': (_peak_above(
+            lambda: numeric._factored_stacks(omega, ev, seg_dt), ev.device)
+            / table, 'tables', numeric._SO_FACTORED_TEMPS),
+        'shifts\' weighted lattice': (_peak_above(
+            lambda: numeric._factored_weighted_lattice(omega, ev, seg_dt,
+                                                       weights), ev.device)
+            / table, 'tables', numeric._SO_FACTORED_TEMPS + 8 * n_s)}
+    print(f'{name}: peak device memory of one segment x {batch} (n_s = '
+          f'{n_s}): ' + '; '.join(
+              f'{what} {got:.2f} {unit} (counted {count})'
+              for what, (got, unit, count) in measured.items()))
+    for what, (got, _, count) in measured.items():
+        _check(f'{name}: {what}, measured against counted', got, count)
+
+
+def second_order_tables(device) -> int:
     """Phase 7c: the second-order term from the separable tables of the
     K2 lattice, against the lattice, at 7b's inputs, at the 3-qubit QFT
-    pulse and on the flagship's frequency shifts; returns the kernel's
-    launches (none)."""
+    pulse and on the flagship's frequency shifts, and one segment's
+    memory against the counts of the chunking at the latter two; returns
+    the kernel's launches (none)."""
     launches = _launches()
 
     # (i) 7b's inputs, a diagonal and a cross-spectrum
@@ -1207,10 +1111,8 @@ def second_order_tables(device, card) -> int:
     cross = torch.stack([torch.stack([spectrum, spectrum / 2]),
                          torch.stack([spectrum / 2, spectrum])])
     for kind, s in (('diagonal', spectrum), ('cross', cross)):
-        etm = _timed(lambda: functional.batched_error_transfer_matrix(
-            p, s, omega, basis, second_order=True), device, card,
-            f'7c(i) second-order ETM at 7b, {kind} spectrum', batch,
-            'evaluation')
+        etm = functional.batched_error_transfer_matrix(p, s, omega, basis,
+                                                       second_order=True)
         if etm.shape != (batch, d * d, d * d) or \
                 not torch.isfinite(etm).all():
             raise AssertionError(f'7c(i): bad ETM, {kind} spectrum')
@@ -1232,38 +1134,40 @@ def second_order_tables(device, card) -> int:
     eigvals = functional._prep(p, p.c_coeffs, p.n_coeffs, p.dt, omega)[0]
     _reduced_terms_agree('7c(i)', omega, eigvals, p.dt,
                          numeric._spectral_weights(spectrum, omega, 2),
-                         device, card, batch, LATTICE_PARITY)
+                         LATTICE_PARITY)
     del p, eigvals, etm
 
     # (ii) the 3-qubit QFT pulse at full width
     p, basis, omega, spectrum = qft3_inputs(device)
     n_qubits, n_w, batch = QFT3_SHAPE
     n_b = len(basis)
-    etm = _timed(lambda: functional.batched_error_transfer_matrix(
-        p, spectrum, omega, basis, second_order=True), device, card,
-        f'7c(ii) second-order ETM of the {n_qubits}-qubit QFT pulse (d = '
-        f'{p.c_opers.shape[-1]}, {n_b} basis elements, {n_w} frequencies, '
-        f'batch {batch})', batch, 'evaluation')
+    etm = functional.batched_error_transfer_matrix(p, spectrum, omega, basis,
+                                                   second_order=True)
+    print(f'7c(ii): second-order ETM of the {n_qubits}-qubit QFT pulse (d = '
+          f'{p.c_opers.shape[-1]}, {n_b} basis elements, {n_w} frequencies, '
+          f'batch {batch}) {tuple(etm.shape)}')
     if etm.shape != (batch, n_b, n_b) or not torch.isfinite(etm).all():
         raise AssertionError('7c(ii): bad ETM')
     eigvals = functional._prep(p, p.c_coeffs, p.n_coeffs, p.dt, omega)[0]
     weights = numeric._spectral_weights(spectrum, omega, p.n_opers.shape[0])
-    _reduced_terms_agree('7c(ii)', omega, eigvals, p.dt, weights, device,
-                         card, batch, WIDE_LATTICE_PARITY)
+    _reduced_terms_agree('7c(ii)', omega, eigvals, p.dt, weights,
+                         WIDE_LATTICE_PARITY)
+    segment_memory('7c(ii)', omega, eigvals, p.dt, weights)
     del p, basis, eigvals, etm
 
     # (iii) the flagship's frequency shifts
     args = flagship_shift_inputs(device)
-    shifts = _timed(lambda: numeric._second_order_diag_shifts(*args),
-                    device, card, f'7c(iii) flagship frequency shifts '
-                    f'({N_OMEGA} frequencies)', 1, 'call')
-    print(f'7c(iii): shifts {tuple(shifts.shape)}, largest entry '
+    shifts = numeric._second_order_diag_shifts(*args)
+    print(f'7c(iii): flagship frequency shifts ({N_OMEGA} frequencies) '
+          f'{tuple(shifts.shape)}, largest entry '
           f'{shifts.abs().max().item():.6e}')
     if not torch.isfinite(shifts).all():
         raise AssertionError('7c(iii): the shifts are not finite')
+    del shifts
     eigvals, _, _, _, _, omega, dt, weights = args
-    _reduced_terms_agree('7c(iii)', omega, eigvals, dt, weights, device,
-                         card, 1, WIDE_LATTICE_PARITY)
+    _reduced_terms_agree('7c(iii)', omega, eigvals, dt, weights,
+                         WIDE_LATTICE_PARITY)
+    segment_memory('7c(iii)', omega, eigvals, dt, weights)
 
     launches = _launches() - launches
     print(f'7c: dword_digits launches {launches}')
@@ -1272,7 +1176,7 @@ def second_order_tables(device, card) -> int:
     return launches
 
 
-def etm_gradient(device, card) -> int:
+def etm_gradient(device) -> int:
     """Phase 7d: autograd through a weighted sum of the flagship's
     functional ETM (row 0, 1000 frequencies), first and second order,
     against central differences (the flagship is degenerate on segments
@@ -1302,12 +1206,9 @@ def etm_gradient(device, card) -> int:
             grad, = torch.autograd.grad(loss(c), c)
             return (grad * direction).sum().item()
 
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(device)
         _reset_launches()
         got = derivative()
         launches += _launches()
-        peak = torch.cuda.max_memory_allocated(device)
         h = ETM_GRAD_STEP
         with torch.no_grad():
             central = ((loss(p.c_coeffs + h * direction)
@@ -1331,10 +1232,6 @@ def etm_gradient(device, card) -> int:
               f'{without:.3e}; dword_digits launches {_launches()}')
         _check(f'7d: the {order}-order ETM gradient against central '
                'differences', err, ETM_GRAD_PARITY)
-        ms = _median_ms(derivative, N_TIMED)
-        print(f'timing: etm gradient, {order} order, {ms:.4f} ms per forward '
-              f'plus backward (median of {N_TIMED}); peak device memory '
-              f'{peak / 2**30:.2f} GiB [{card}]')
     return launches
 
 
@@ -1359,7 +1256,7 @@ def _rel(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-def autograd_flagship(device, card, batched, omega, spectrum) -> int:
+def autograd_flagship(device, batched, omega, spectrum) -> int:
     """Phase 8a: autograd of the flagship's batched infidelity on both
     routes; returns the kernel's launches in the forward pass and the
     default route's gradient."""
@@ -1367,9 +1264,7 @@ def autograd_flagship(device, card, batched, omega, spectrum) -> int:
                          n_coeffs=batched.n_coeffs[:GRAD_BATCH],
                          dt=batched.dt[:GRAD_BATCH])
     route = config.contraction_mode(device)
-    torch.cuda.reset_peak_memory_stats(device)
     _, grad, forward, backward = _infidelity_grad(p, spectrum, omega, CHUNK)
-    peak = torch.cuda.max_memory_allocated(device)
     print(f'autograd flagship: batch {GRAD_BATCH} chunk {CHUNK}, route '
           f'{route!r}, dword_digits launches {forward} forward, {backward} '
           f'backward')
@@ -1396,28 +1291,17 @@ def autograd_flagship(device, card, batched, omega, spectrum) -> int:
         raise AssertionError('the Ozaki gradient is off the native one')
     if not to_cpu <= GRAD_CPU_PARITY:
         raise AssertionError('the card and the CPU disagree on the gradient')
-    for name in ('ozaki', 'native'):
-        ms = _median_ms(lambda: _infidelity_grad(p, spectrum, omega, CHUNK,
-                                                 name), N_TIMED)
-        print(f'timing: autograd {name} route {ms / GRAD_BATCH:.4f} ms/pulse '
-              f'forward plus backward (median of {N_TIMED}, batch '
-              f'{GRAD_BATCH}, chunk {CHUNK}) [{card}]')
-    print(f'autograd flagship: peak device memory {peak / 2**30:.2f} GiB '
-          f'(Ozaki route) [{card}]')
     return forward, grad
 
 
-def analytic_flagship(device, card) -> None:
+def analytic_flagship(device) -> None:
     """Phase 8b: the analytic infidelity derivative of the flagship
     against autograd."""
     omega = torch.from_numpy(np.geomspace(1e-2, 1e2, N_OMEGA_ANALYTIC)).to(
         device)
     spectrum = 1e-4 / omega
     pulse = qft.qft_pulse_sequence(4, device=device)
-    torch.cuda.reset_peak_memory_stats(device)
     analytic = fft.infidelity_derivative(pulse, spectrum, omega)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated(device)
     if analytic.shape != (18, 13, 18) or not torch.isfinite(analytic).all():
         raise AssertionError(f'bad analytic derivative: '
                              f'{tuple(analytic.shape)}')
@@ -1439,16 +1323,8 @@ def analytic_flagship(device, card) -> None:
     if not to_autograd <= ANALYTIC_PARITY:
         raise AssertionError('the analytic derivative is off autograd')
 
-    def cold():
-        pulse.cleanup('all')
-        fft.infidelity_derivative(pulse, spectrum, omega)
-    ms = _median_ms(cold, 3)
-    print(f'timing: analytic flagship {ms:.4f} ms per cold call (median of '
-          f'3, caches cleared before each); peak device memory '
-          f'{peak / 2**30:.2f} GiB [{card}]')
 
-
-def grad_config(device, card) -> None:
+def grad_config(device) -> None:
     """Phase 8c: bench.py's config_grad batch through autograd, row 0
     against the analytic derivative."""
     n_dt, n_omega, batch = GRAD_SHAPE
@@ -1476,9 +1352,6 @@ def grad_config(device, card) -> None:
     if not (torch.isfinite(grad).all() and err <= GRAD_CONFIG_PARITY):
         raise AssertionError('config_grad: autograd is off the analytic '
                              'derivative')
-    ms = _median_ms(lambda: _infidelity_grad(p, spectrum, omega), N_TIMED)
-    print(f'timing: grad config autograd {ms / batch:.4f} ms/pulse (median '
-          f'of {N_TIMED}, batch {batch}) [{card}]')
 
 
 def _omega_spectrum(device):
@@ -1499,7 +1372,7 @@ def _check(name, value, bound):
         raise AssertionError(f'{name}: {value:.3e} exceeds {bound}')
 
 
-def concat_flagship(device, card, object_infid) -> dict:
+def concat_flagship(device, object_infid) -> dict:
     """Phase 9a: the flagship built live and composed from its gates;
     returns the kernel's launches by what made them."""
     omega, spectrum = _omega_spectrum(device)
@@ -1514,18 +1387,13 @@ def concat_flagship(device, card, object_infid) -> dict:
     if diff != 0:
         raise AssertionError('the live flagship is not the flagship')
 
-    def compose():
-        gates = qft._qft_atomic_pulses(4, device=device)
-        for gate in gates:
-            gate.cache_filter_function(omega)
-        return fft.concatenate(gates)
-
-    torch.cuda.reset_peak_memory_stats(device)
     _reset_launches()
-    composed = compose()
+    gates = qft._qft_atomic_pulses(4, device=device)
+    for gate in gates:
+        gate.cache_filter_function(omega)
+    composed = fft.concatenate(gates)
     torch.cuda.synchronize()
     compose_launches = _launches()
-    peak = torch.cuda.max_memory_allocated(device)
     if not (composed.is_cached('control_matrix') and composed == live):
         raise AssertionError('the composed flagship has no control matrix '
                              'or is another pulse')
@@ -1553,15 +1421,11 @@ def concat_flagship(device, card, object_infid) -> dict:
     _check('composed against the default route', _rel(got, scratch),
            OZAKI_CTRL_PARITY)
     _check('composed infidelity against phase 6', to_object, PARITY)
-    print(f'timing: concat flagship {_median_ms(compose, N_TIMED):.4f} ms '
-          f'per cold composition (build 9 gates, cache, concatenate; '
-          f'median of {N_TIMED}); peak device memory of one composition '
-          f'{peak / 2**30:.2f} GiB [{card}]')
     return {'concatenate (live flagship, 9 gates)': compose_launches,
             'from scratch, default route (live flagship)': launches}
 
 
-def concat_periodic(device, card) -> dict:
+def concat_periodic(device) -> dict:
     """Phase 9b: periodic trains of the flagship; returns the kernel's
     launches by what made them."""
     omega, _ = _omega_spectrum(device)
@@ -1604,11 +1468,9 @@ def concat_periodic(device, card) -> dict:
     _check('periodic against from scratch', to_scratch, OZAKI_CTRL_PARITY)
     del uniform, copies, scratch, got
 
-    torch.cuda.reset_peak_memory_stats(device)
     _reset_launches()
     train = fft.concatenate_periodic(pulse, long)
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated(device)
     train_launches += _launches()
     filter_function = train.get_filter_function(omega)
     prop = train.total_propagator
@@ -1622,10 +1484,6 @@ def concat_periodic(device, card) -> dict:
     if not torch.isfinite(filter_function).all():
         raise AssertionError('the long train is not finite')
     _check('unitarity of the long train', unitarity, UNITARITY)
-    ms = _median_ms(lambda: fft.concatenate_periodic(pulse, long), N_TIMED)
-    print(f'timing: concat periodic {ms:.4f} ms per train of {long} '
-          f'flagship pulses (closed form, median of {N_TIMED}); peak device '
-          f'memory {peak / 2**30:.2f} GiB [{card}]')
     if train_launches != 0:
         raise AssertionError(f'the closed form launched {train_launches} '
                              'kernels, not 0')
@@ -1636,7 +1494,7 @@ def concat_periodic(device, card) -> dict:
                 scratch_launches}
 
 
-def concat_distinct(device, card, batched) -> dict:
+def concat_distinct(device, batched) -> dict:
     """Phase 9c: four distinct flagship-sized gates concatenated with
     their pulse correlations; returns the kernel's launches by what made
     them."""
@@ -1698,14 +1556,12 @@ def concat_distinct(device, card, batched) -> dict:
     _check('K5 against from scratch', to_scratch, OZAKI_CTRL_PARITY)
     _check('K5 on the card against the CPU', to_cpu, CONCAT_PARITY)
     _reset_launches()
-    ms = _median_ms(lambda: fft.concatenate(
-        gates, calc_pulse_correlation_FF=True), N_TIMED)
+    fft.concatenate(gates, calc_pulse_correlation_FF=True)
+    torch.cuda.synchronize()
     compose_launches += _launches()
-    print(f'timing: concat distinct {ms:.4f} ms per concatenation of 4 '
-          f'cached gates with pulse correlations (median of {N_TIMED}, '
-          f'{_launches()} launches) [{card}]')
     if compose_launches != 0:
-        raise AssertionError('the timed concatenations launched the kernel')
+        raise AssertionError('a second concatenation of the cached gates '
+                             'launched the kernel')
     return {'cache_control_matrix (4 flagship-sized gates)': part_launches,
             'concatenate (4 flagship-sized gates)': compose_launches,
             'from scratch, default route (52-segment train)':
@@ -1735,7 +1591,7 @@ def clifford_train(device):
     return [distinct[i] for i in train_idx], omega
 
 
-def concat_small(device, card) -> int:
+def concat_small(device) -> int:
     """Phase 9d: bench.py's small-d configurations; returns the kernel's
     launches (none of these pulses is deep)."""
     _reset_launches()
@@ -1761,11 +1617,6 @@ def concat_small(device, card) -> int:
           f'{LONG_TRAIN_PARITY})')
     _check('concat_train, closed form', parity, LONG_TRAIN_PARITY)
     _check('concat_train, general path', parity_general, LONG_TRAIN_PARITY)
-    ms = _median_ms(lambda: fft.concatenate([not_pulse] * n_pulses), N_TIMED)
-    ms_general = _median_ms(lambda: fft.concatenate(pair), N_TIMED)
-    print(f'timing: concat train {ms:.4f} ms per train (closed form), '
-          f'{ms_general:.4f} ms on the general path (median of {N_TIMED}) '
-          f'[{card}]')
 
     # clifford_train
     train, omega = clifford_train(device)
@@ -1778,12 +1629,9 @@ def concat_small(device, card) -> int:
           f'CPU {to_cpu:.3e} of the largest entry (bound '
           f'{CLIFFORD_TRAIN_PARITY})')
     _check('clifford_train against the CPU', to_cpu, CLIFFORD_TRAIN_PARITY)
-    ms = _median_ms(lambda: fft.concatenate(train), N_TIMED)
-    print(f'timing: clifford train {ms:.4f} ms per train (median of '
-          f'{N_TIMED}) [{card}]')
 
     # dd
-    n, n_omega, batch = DD_SHAPE
+    n, n_omega = DD_SHAPE
     tau = np.pi
     omega = np.logspace(0, 2, n_omega)
     for dd_type, closed in (('cpmg', analytic.CPMG), ('udd', analytic.UDD)):
@@ -1795,19 +1643,6 @@ def concat_small(device, card) -> int:
               f'the closed form: max |FF - closed form| {err:.3e} (bound '
               f'{DD_PARITY})')
         _check(f'dd {dd_type}', err, DD_PARITY)
-    base = functional.make_pulse_arrays(
-        dd.dd_pulse(n, tau=tau, tau_pi=1e-9, device=device))
-    scales = torch.from_numpy(
-        1 + 0.1 * np.random.default_rng(0).random(batch)).to(device)
-    p = base._replace(c_coeffs=base.c_coeffs / scales[:, None, None],
-                      n_coeffs=base.n_coeffs.expand(batch, -1, -1),
-                      dt=base.dt * scales[:, None])
-    omega_dev = torch.from_numpy(omega).to(device)
-    ms = _median_ms(lambda: functional.fidelity_filter_function(p, omega_dev),
-                    N_TIMED)
-    print(f'timing: dd {ms / batch:.4f} ms/pulse (CPMG-{n} at {batch} '
-          f'durations, filter function at {n_omega} frequencies, median of '
-          f'{N_TIMED}) [{card}]')
 
     # rb
     n_seq, length, n_omega = RB_SHAPE
@@ -1831,14 +1666,10 @@ def concat_small(device, card) -> int:
     if not torch.isfinite(got).all():
         raise AssertionError('rb: infidelities not finite')
     _check('rb against concatenate', err, CONCAT_PARITY)
-    ms = _median_ms(lambda: rb.batched_rb_infidelities(
-        seqs, omega, spectrum, device=device), N_TIMED)
-    print(f'timing: rb {ms / n_seq:.6f} ms/sequence ({ms:.4f} ms per call of '
-          f'{n_seq}, median of {N_TIMED}) [{card}]')
     return _launches()
 
 
-def concat_second_order(device, card) -> int:
+def concat_second_order(device) -> int:
     """Phase 9e: K11 on two pulses at config_second_order's shapes;
     returns the kernel's launches (d = 4 is not deep)."""
     _, host, basis, omega, _ = second_order_inputs(device)
@@ -1847,15 +1678,10 @@ def concat_second_order(device, card) -> int:
         host['c_opers'], ['A', 'B'], host['c_coeffs'][b], host['n_opers'],
         ['a', 'b'], host['n_coeffs'][b], host['dt'][b], basis=basis,
         device=device) for b in (0, 1)]
-
-    def compose():
-        for p in pulses:
-            p.cleanup('all')
-            p.cache_filter_function(omega, cache_intermediates=True)
-            p.cache_filter_function(omega, order=2, cache_intermediates=True)
-        return fft.concatenate(pulses, calc_second_order_FF=True)
-
-    train = compose()
+    for p in pulses:
+        p.cache_filter_function(omega, cache_intermediates=True)
+        p.cache_filter_function(omega, order=2, cache_intermediates=True)
+    train = fft.concatenate(pulses, calc_second_order_FF=True)
     got = train.get_filter_function(omega, order=2)
     scratch = fft.concatenate_without_filter_function(pulses)
     err = _rel(got, scratch.get_filter_function(omega, order=2))
@@ -1866,9 +1692,6 @@ def concat_second_order(device, card) -> int:
     if not torch.isfinite(got).all():
         raise AssertionError('K11 is not finite')
     _check('K11 against K10', err, CONCAT_PARITY)
-    print(f'timing: concat second order {_median_ms(compose, N_TIMED):.4f} '
-          f'ms per cold composition (both parts\' second-order caches, then '
-          f'K11; median of {N_TIMED}) [{card}]')
     return _launches()
 
 
@@ -1934,7 +1757,7 @@ def _rows(pulse, identifiers) -> np.ndarray:
                                              identifiers)
 
 
-def extend_flagship(device, card):
+def extend_flagship(device):
     """Phase 10a: extend at the flagship's width; returns the extended
     pulse and the kernel's launches by what made them."""
     omega, _ = _omega_spectrum(device)
@@ -1944,12 +1767,10 @@ def extend_flagship(device, card):
         part.cache_filter_function(omega)
     torch.cuda.synchronize()
     part_launches = _launches()
-    torch.cuda.reset_peak_memory_stats(device)
     _reset_launches()
     ext = _extend(parts, extra)
     torch.cuda.synchronize()
     launches = _launches()
-    peak = torch.cuda.max_memory_allocated(device)
     same = all(np.array_equal(getattr(ext, f), getattr(explicit, f))
                for f in ('c_opers', 'c_oper_identifiers', 'c_coeffs',
                          'n_opers', 'n_oper_identifiers', 'n_coeffs', 'dt'))
@@ -2028,27 +1849,13 @@ def extend_flagship(device, card):
     print(f'extend: the card with the crosstalk rows native against the '
           f'CPU port {to_cpu:.3e} of the largest entry (bound {CPU_PARITY})')
     _check('extend on the card against the CPU', to_cpu, CPU_PARITY)
-
-    _reset_launches()
-    ms = _median_ms(lambda: _extend(parts, extra), N_TIMED)
-    timed_launches = _launches()
-
-    def scratch():
-        explicit.cleanup('all')
-        explicit.get_control_matrix(omega)
-    ms_scratch = _median_ms(scratch, N_TIMED)
-    print(f'timing: extend {ms:.4f} ms per cold extend of the cached parts '
-          f'({timed_launches} launches in {N_TIMED} calls), explicit '
-          f'pulse\'s control matrix from scratch on the default route '
-          f'{ms_scratch:.4f} ms (median of {N_TIMED}); peak device memory of '
-          f'one extend {peak / 2**30:.2f} GiB [{card}]')
     return ext, {'cache_filter_function (extend\'s two d = 4 parts)':
                  part_launches,
                  'extend (crosstalk rows from scratch, default route)':
                  launches}
 
 
-def remap_extended(device, card, ext) -> dict:
+def remap_extended(device, ext) -> dict:
     """Phase 10b: remap of the extended pulse; returns the kernel's
     launches."""
     omega, _ = _omega_spectrum(device)
@@ -2086,11 +1893,7 @@ def remap_extended(device, card, ext) -> dict:
                              'permutation of the extended pulse')
     _check('remapped parts\' rows', to_parts, CONCAT_PARITY)
     _check('remapped crosstalk rows', to_extra, OZAKI_CTRL_PARITY)
-    _reset_launches()
-    ms = _median_ms(lambda: fft.remap(ext, order), N_TIMED)
-    print(f'timing: remap {ms:.4f} ms per remap of the cached extended '
-          f'pulse (median of {N_TIMED}, {_launches()} launches) [{card}]')
-    return {'remap (extended pulse)': launches + _launches()}
+    return {'remap (extended pulse)': launches}
 
 
 def cpmg_family(device):
@@ -2110,24 +1913,18 @@ def cpmg_family(device):
     return p, taus, omega
 
 
-def spectroscopy_cpmg(device, card) -> int:
+def spectroscopy_cpmg(device) -> int:
     """Phase 10c: noise spectroscopy on a CPMG-8 family; returns the
     kernel's launches."""
     n_pulses, _, n_nodes, n_steps = SPECTRO_SHAPE
     p, taus, omega = cpmg_family(device)
     _reset_launches()
-
-    def design():
-        ffs = functional.fidelity_filter_function(p, omega)[:, 0, 0].real
-        return spectroscopy.design_matrix(ffs, omega, n_nodes=n_nodes)
-    a, nodes = design()
+    a, nodes = spectroscopy.design_matrix(
+        functional.fidelity_filter_function(p, omega)[:, 0, 0].real, omega,
+        n_nodes=n_nodes)
     s_true = torch.from_numpy(1e-3 / nodes**0.7).to(device)
     infids = a @ s_true
-
-    def solve():
-        return spectroscopy.reconstruct(a, infids, ridge=1e-10,
-                                        n_steps=n_steps)
-    s_hat = solve()
+    s_hat = spectroscopy.reconstruct(a, infids, ridge=1e-10, n_steps=n_steps)
     torch.cuda.synchronize()
     launches = _launches()
     spectrum = spectroscopy.interpolate_spectrum(s_true, nodes, omega)
@@ -2160,15 +1957,10 @@ def spectroscopy_cpmg(device, card) -> int:
     _check('interior nodes', interior, 0.15)
     _check('reconstruction on the card against the CPU', to_cpu,
            S_HAT_PARITY)
-    ms_design = _median_ms(design, N_TIMED)
-    ms_solve = _median_ms(solve, N_TIMED)
-    print(f'timing: spectroscopy design matrix {ms_design:.4f} ms (filter '
-          f'functions of {n_pulses} pulses and the trapezoid), solve '
-          f'{ms_solve:.4f} ms ({n_steps} steps; median of {N_TIMED}) [{card}]')
     return launches
 
 
-def exchange_cnot(device, card) -> int:
+def exchange_cnot(device) -> int:
     """Phase 10d: the exchange model on a .mat file written here; returns
     the kernel's launches."""
     exchange_ops, gradient_ops = exchange.heisenberg_operators(4)
@@ -2227,7 +2019,7 @@ def _full(x, cpu_mesh=None):
                               run_check=False).full_tensor()
 
 
-def sharded_flagship(device, card, batched, omega, spectrum, infid):
+def sharded_flagship(device, batched, omega, spectrum, infid):
     """Phase 11a: the flagship batch on a one-rank mesh; returns the mesh
     and the kernel's launches by path."""
     mesh = parallel.make_mesh(1, device=device)
@@ -2245,14 +2037,6 @@ def sharded_flagship(device, card, batched, omega, spectrum, infid):
           f'collectives {reduced}, dword_digits launches {launches}')
     if not equal or reduced or launches != BATCH // CHUNK:
         raise AssertionError('the one-rank sharded flagship is not phase 4')
-    ms = _median_ms(lambda: parallel.sharded_batched_infidelity(
-        batched, spectrum, omega, mesh, chunk_size=CHUNK), N_TIMED)
-    plain = _median_ms(lambda: functional.batched_infidelity(
-        batched, spectrum, omega, chunk_size=CHUNK), N_TIMED)
-    print(f'timing: sharded_batched_infidelity (one-rank mesh) '
-          f'{ms / BATCH:.4f} ms/pulse, functional.batched_infidelity '
-          f'{plain / BATCH:.4f} ms/pulse (median of {N_TIMED}, batch '
-          f'{BATCH}, chunk {CHUNK}) [{card}]')
     return mesh, {'parallel.sharded_batched_infidelity (one-rank mesh)':
                   launches}
 
@@ -2339,14 +2123,11 @@ def _rank_11b():
     mesh, cpu_mesh = meshes[2, 1]
     out['dryrun'] = dryrun_grape(mesh, 2, device, cpu_mesh)
     # 12b: the rank function of entry.dryrun_multichip(2) in this group
-    t0 = time.perf_counter()
     out['entry dryrun'] = entry._dryrun_rank(2, 'cuda')
-    torch.cuda.synchronize()
-    out['entry dryrun seconds'] = time.perf_counter() - t0
     return out
 
 
-def two_ranks(device, card, batched, omega, infid, grad_8a) -> dict:
+def two_ranks(batched, omega, infid, grad_8a) -> dict:
     """Phase 11b: two spawned ranks on cuda:0; returns the kernel's
     launches of both ranks by path."""
     print('two ranks: NCCL refuses two ranks on one card, so both ranks '
@@ -2354,11 +2135,9 @@ def two_ranks(device, card, batched, omega, infid, grad_8a) -> dict:
           'tensors but its all-gather of them crashes, so each rank gathers '
           'a result with full_tensor() on a CPU mesh of the same ranks')
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     ranks = parallel_ranks.run_ranks(_rank_11b, 2, backend='gloo',
                                      deadline=RANK_DEADLINE)
-    print(f'two ranks: both exited 0 after {time.perf_counter() - t0:.1f} s '
-          f'(spawn and start-up included)')
+    print(f'two ranks: both exited 0 within {RANK_DEADLINE} s')
 
     p = _first(batched, GRAD_BATCH)
     one = p._replace(c_coeffs=p.c_coeffs[0], n_coeffs=p.n_coeffs[0],
@@ -2404,11 +2183,10 @@ def two_ranks(device, card, batched, omega, infid, grad_8a) -> dict:
             raise AssertionError(f'dryrun on two ranks: collectives '
                                  f'{reduced}, launches {dry_launches}')
         dry_total += dry_launches
-    print(f'two ranks dryrun: the collectives of a grape_step {reduced} '
-          f'[{card}]')
+    print(f'two ranks dryrun: the collectives of a grape_step {reduced}')
     launches['parallel.grape_step (dryrun, two ranks)'] = dry_total
     launches['entry.dryrun_multichip (rank function, two ranks, K = 12)'] = \
-        entry_dryrun(card, ranks)
+        entry_dryrun(ranks)
     backward_reduced = {(1, 2): [('sum', 'omega')], (2, 1): []}
     forward_reduced = {(1, 2): [('max', None), ('sum', 'omega')],
                        (2, 1): [('max', None)]}
@@ -2445,15 +2223,13 @@ def two_ranks(device, card, batched, omega, infid, grad_8a) -> dict:
     return launches
 
 
-def grape_flagship(device, card, mesh, batched, omega, spectrum,
-                   grad_8a) -> dict:
+def grape_flagship(device, mesh, batched, omega, spectrum, grad_8a) -> dict:
     """Phase 11c: GRAPE on the one-rank mesh; returns the kernel's
     launches by path."""
     loss0, loss1, infids, reduced, dry_launches = dryrun_grape(mesh, 1,
                                                               device)
     _check_dryrun('grape dryrun (one rank)', loss0, loss1, infids)
     p = _first(batched, GRAD_BATCH)
-    torch.cuda.reset_peak_memory_stats(device)
     sharding.collectives = []
     _reset_launches()
     new, loss = parallel.grape_step(p.c_coeffs, p, spectrum, omega, mesh,
@@ -2461,7 +2237,6 @@ def grape_flagship(device, card, mesh, batched, omega, spectrum,
                                     chunk_size=CHUNK)
     torch.cuda.synchronize()
     launches, step_reduced = _launches(), list(sharding.collectives)
-    peak = torch.cuda.max_memory_allocated(device)
     grad = (p.c_coeffs - _full(new)) / GRAPE_PROBE_LR
     to_8a = _rel(grad, grad_8a)
     print(f'grape flagship: rows 0-{GRAD_BATCH - 1}, chunk {CHUNK}, '
@@ -2474,25 +2249,17 @@ def grape_flagship(device, card, mesh, batched, omega, spectrum,
     if launches != GRAD_BATCH // CHUNK or step_reduced:
         raise AssertionError('grape_step launched or reduced otherwise '
                              'than the forward pass of phase 8a')
-    ms = _median_ms(lambda: parallel.grape_step(
-        p.c_coeffs, p, spectrum, omega, mesh, chunk_size=CHUNK), N_TIMED)
-    print(f'timing: grape_step {ms / GRAD_BATCH:.4f} ms per step per pulse '
-          f'(median of {N_TIMED}, batch {GRAD_BATCH}, chunk {CHUNK}); peak '
-          f'device memory {peak / 2**30:.2f} GiB [{card}]')
 
     _reset_launches()
-    t0 = time.perf_counter()
     res = parallel.optimize_pulse(p, spectrum, omega, n_steps=OPTIMIZE_STEPS,
                                   mesh=mesh, chunk_size=CHUNK)
     history = _full(res.history)
     final = _full(res.infidelity)
     torch.cuda.synchronize()
-    opt_ms = (time.perf_counter() - t0) * 1e3
     opt_launches = _launches()
     print(f'grape flagship: optimize_pulse {OPTIMIZE_STEPS} steps (Adam, lr '
           f'1e-2): history {history.tolist()}, final infidelity '
-          f'{final.tolist()}; dword_digits launches {opt_launches}; '
-          f'{opt_ms:.1f} ms [{card}]')
+          f'{final.tolist()}; dword_digits launches {opt_launches}')
     if (history.shape != (OPTIMIZE_STEPS,) or final.shape != (GRAD_BATCH,)
             or not torch.isfinite(history).all()
             or not torch.isfinite(final).all()
@@ -2504,16 +2271,14 @@ def grape_flagship(device, card, mesh, batched, omega, spectrum,
             'steps)': opt_launches}
 
 
-def entry_flagship(device, card, ozaki_row0, native_row0) -> int:
+def entry_flagship(device, ozaki_row0, native_row0) -> int:
     """Phase 12a: the port's ``entry()`` on the card; returns the kernel's
     launches in one call."""
     fn, args = entry.entry()
-    torch.cuda.reset_peak_memory_stats(device)
     _reset_launches()
     out = fn(*args)
     torch.cuda.synchronize()
     launches = _launches()
-    peak = torch.cuda.max_memory_allocated(device)
     if (out.shape != (18,) or out.dtype != torch.float64
             or out.device != device or not torch.isfinite(out).all()):
         raise AssertionError(f'entry(): bad result {tuple(out.shape)} '
@@ -2529,16 +2294,15 @@ def entry_flagship(device, card, ozaki_row0, native_row0) -> int:
            OBJECT_PARITY)
     _check('12a: entry() against phase 4 native row 0', to_native, PARITY)
     _reset_launches()
-    ms = _median_ms(lambda: fn(*args), N_TIMED)
-    if launches != 1 or _launches() != N_TIMED:
+    fn(*args)
+    torch.cuda.synchronize()
+    if launches != 1 or _launches() != 1:
         raise AssertionError(f'entry(): {launches} launches in one call, '
-                             f'{_launches()} in {N_TIMED}: not 1 a call')
-    print(f'timing: entry() step {ms:.4f} ms per call (median of '
-          f'{N_TIMED}); peak device memory {peak / 2**30:.3f} GiB [{card}]')
+                             f'{_launches()} in the next: not 1 a call')
     return launches
 
 
-def entry_dryrun(card, ranks) -> int:
+def entry_dryrun(ranks) -> int:
     """Phase 12b: the ranks' results of ``entry._dryrun_rank(2, 'cuda')``,
     the rank function of ``entry.dryrun_multichip(2)``, run in phase 11b's
     two ranks; returns their kernel launches (K = 12 is not deep: 0)."""
@@ -2557,11 +2321,10 @@ def entry_dryrun(card, ranks) -> int:
             raise AssertionError(f'12b rank {rank}: {got["launches"]} '
                                  'kernel launches on the K = 12 problem')
     print(f'dryrun card: entry._dryrun_rank(2, \'cuda\') in the two ranks of '
-          f'11b on cuda:0 over gloo (the spawn of 11b), '
-          f'{[round(r["entry dryrun seconds"], 3) for r in ranks]} s per rank;'
-          f' loss and infidelities against 11b\'s dryrun on the same mesh '
+          f'11b on cuda:0 over gloo (the spawn of 11b): loss and '
+          f'infidelities against 11b\'s dryrun on the same mesh '
           f'{[f"{e:.3e}" for e in errs]} relative (bound {SHARD_PARITY}); '
-          f'dword_digits launches {launches} [{card}]')
+          f'dword_digits launches {launches}')
     for err in errs:
         _check('12b: the entry dry run against 11b\'s', err, SHARD_PARITY)
     return sum(launches)
@@ -2588,7 +2351,7 @@ def _elementwise(f, want):
     return ((f - want).abs() / want.abs().clamp_min(floor)).max().item()
 
 
-def cpmg_pathology(device, card) -> dict:
+def cpmg_pathology(device) -> dict:
     """Phase 12c: the CPMG-300 train on the default route, which must
     escalate, through ``batched_infidelity`` and the object path; returns
     the kernel's launches by path."""
@@ -2625,16 +2388,6 @@ def cpmg_pathology(device, card) -> dict:
     _check('12c: escalated batch against native', to_native,
            ESCALATED_PARITY)
     _check('12c: escalated batch against the CPU', to_cpu, ESCALATED_PARITY)
-    calls = {name: functools.partial(functional.batched_infidelity, pb,
-                                     spectrum, omega, **kw)
-             for name, kw in (('escalated (default)', {}),
-                              ('unescalated', dict(escalation_tol=0)),
-                              ('native', dict(contract='native')))}
-    for name, (median, q1, q3) in _in_turns_ms(calls,
-                                               ESCALATION_ROUNDS).items():
-        print(f'timing: cpmg-300 batched_infidelity {name} {median:.4f} ms '
-              f'per call of 2 (median of {ESCALATION_ROUNDS} in turns with '
-              f'the others; quartiles {q1:.4f}, {q3:.4f}) [{card}]')
 
     _reset_launches()
     f_got = pulse.get_filter_function(omega).real
@@ -2672,13 +2425,6 @@ def cpmg_pathology(device, card) -> dict:
            ESCALATED_PARITY)
     _check('12c: escalated filter function against the CPU', obj_cpu,
            ESCALATED_PARITY)
-
-    def cold():
-        pulse.cleanup('all')
-        pulse.get_filter_function(omega)
-    print(f'timing: cpmg-300 object path {_median_ms(cold, N_TIMED):.4f} ms '
-          f'per cold call with its escalation (median of {N_TIMED}) '
-          f'[{card}]')
     return {'functional.batched_infidelity (CPMG-300, escalated)': launches,
             'PulseSequence.get_filter_function (CPMG-300, escalated)':
             object_launches}
@@ -2790,11 +2536,11 @@ def example_on_card(name, values, cpu) -> None:
           + ''.join(f'; {h}' for h in held))
 
 
-def examples_on_card(device, card) -> dict:
+def examples_on_card() -> dict:
     """Phase 13: each ``examples_torch/<name>.main([..., '--device',
     'cuda'])`` in process at its default size (figures, where matplotlib
-    imports, under a temporary ``--out``): its numbers, its ms and its
-    kernel launches; checked by :func:`example_on_card`, against the
+    imports, under a temporary ``--out``): its numbers and its kernel
+    launches; checked by :func:`example_on_card`, against the
     port's CPU run of the example for all but periodic_driving (its
     numbers are timings and a diagnostic) and optimal_control (300 GRAPE
     steps on the host).  Returns the launches per example."""
@@ -2803,16 +2549,12 @@ def examples_on_card(device, card) -> dict:
         for name in EXAMPLES:
             module = _load_example(name)
             extra = ['--out', out] if name in EXAMPLE_FIGURES else []
-            torch.cuda.synchronize()
             _reset_launches()
-            t0 = time.perf_counter()
             values = module.main(['--device', 'cuda'] + extra)
             torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
             launches[f'examples_torch/{name}.py'] = _launches()
-            print(f'13 {name}: {ms:.1f} ms on the card, dword_digits '
-                  f'launches {_launches()} [{card}]; numbers '
-                  f'{_plain(values)}')
+            print(f'13 {name}: on the card, dword_digits launches '
+                  f'{_launches()}; numbers {_plain(values)}')
             cpu = None
             if name not in ('periodic_driving', 'optimal_control'):
                 with contextlib.redirect_stdout(io.StringIO()):

@@ -18,8 +18,7 @@ REAL = torch.float64
 COMPLEX = torch.complex128
 
 #: Ozaki truncation level of shallow contractions (JAX:
-#: ``FF_TPU_OZAKI_BITS``).  It also sets the slice rule that decides
-#: whether a contraction is "deep".
+#: ``FF_TPU_OZAKI_BITS``); the port runs them natively.
 PRECISION_BITS = 30
 #: Truncation level of the deep factored contraction (JAX:
 #: ``FF_TPU_OZAKI_BITS_DEEP``).

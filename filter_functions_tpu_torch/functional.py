@@ -23,6 +23,7 @@ import torch
 
 from . import config, numeric, tracing, util
 from .basis import Basis
+from .numeric import _escalates
 
 __all__ = ['PulseArrays', 'make_pulse_arrays', 'control_matrix',
            'fidelity_filter_function', 'infidelity', 'batched_infidelity',
@@ -121,23 +122,6 @@ def _infid_contract(terms: Tuple[torch.Tensor, ...], spectrum: torch.Tensor,
         return integral / (2 * math.pi * d), ratio
 
 
-def _escalates(ratios: torch.Tensor, escalation_tol: float,
-               ratio_max: Optional[Callable] = None) -> bool:
-    """Whether the largest quantization ratio exceeds *escalation_tol* (0
-    disables the check).  *ratio_max* maps the local largest ratio to
-    the one the decision reads: the sharded entry points take its
-    maximum over the mesh, so that every rank decides as the unsharded
-    call does."""
-    if escalation_tol <= 0:
-        return False
-    worst = ratios.max()
-    if ratio_max is not None:
-        worst = ratio_max(worst)
-    escalated = bool(worst > escalation_tol)
-    tracing.counts['sync.escalation'] += 1
-    return tracing.decision(escalated)
-
-
 def control_matrix(p: PulseArrays, omega: torch.Tensor,
                    contract: Optional[str] = None,
                    escalation_tol: float = config.ESCALATION_TOL
@@ -156,7 +140,7 @@ def _control_matrix(p: PulseArrays, omega: torch.Tensor, mode: str,
                     escalation_tol: float,
                     ratio_max: Optional[Callable] = None) -> torch.Tensor:
     """:func:`control_matrix` on the resolved route *mode*, the
-    escalation decided by :func:`_escalates`."""
+    escalation decided by :func:`.numeric._escalates`."""
     _, terms, degenerate = _prep(p, p.c_coeffs, p.n_coeffs, p.dt, omega)
     ctrl, ratio = _contract(terms, degenerate, 'stat', mode)
     if _escalates(ratio, escalation_tol, ratio_max):
@@ -247,7 +231,7 @@ def _batched_infidelity(p: PulseArrays, spectrum: torch.Tensor,
                         ratio_max: Optional[Callable] = None
                         ) -> torch.Tensor:
     """:func:`batched_infidelity` on the resolved route *mode*: the
-    'stat' pass, the decision of :func:`_escalates`, and the 'force'
+    'stat' pass, the decision of :func:`.numeric._escalates`, and the 'force'
     pass when it escalates (*weights*: :func:`_infid_contract`)."""
     infid, ratios = _batched_stat(p, spectrum, omega, chunk_size, 'stat',
                                   mode, weights)

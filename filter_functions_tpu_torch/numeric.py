@@ -19,8 +19,8 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import (Any, Dict, Mapping, Optional, Sequence, Tuple,
-                    Union)
+from typing import (Any, Callable, Dict, Mapping, Optional, Sequence,
+                    Tuple, Union)
 from warnings import warn
 
 import numpy as np
@@ -242,7 +242,7 @@ _SO_SERIES_J = 12
 #: (n_w, d^2)-size complex128 arrays per segment that the separable
 #: tables hold at once, most of them inside :func:`_frac_divdiff_coeffs`
 #: (the series and closed-form branches of its _SO_SMALL_K coefficients,
-#: their powers and products); scripts/torch_etm_stages.py measures them
+#: their powers and products); chip_smoke.py's phase 7c measures them
 #: on a CUDA card.
 _SO_FACTORED_TEMPS = 36
 
@@ -533,12 +533,28 @@ def _deep_quant_ratio(out_re, out_im, p_re, p_im, b_fac, c_fac,
     return ratio.flatten(-2).amax(-1)
 
 
+def _escalates(ratios: torch.Tensor, escalation_tol: float,
+               ratio_max: Optional[Callable] = None) -> bool:
+    """Whether the largest quantization ratio (:func:`_deep_quant_ratio`)
+    exceeds *escalation_tol* (0 disables the check), read on the host.
+    *ratio_max* maps the local largest ratio to the one the decision
+    reads: the sharded entry points take its maximum over the mesh, so
+    that every rank decides as the unsharded call does."""
+    if escalation_tol <= 0:
+        return False
+    worst = ratios.max()
+    if ratio_max is not None:
+        worst = ratio_max(worst)
+    escalated = bool(worst > escalation_tol)
+    tracing.counts['sync.escalation'] += 1
+    return tracing.decision(escalated)
+
+
 def _is_deep(K: int) -> bool:
-    """Whether a K-deep contraction is in the deep regime (1024 < K <=
-    16384), decided by the bf16 slice rule at 30 bits as in the JAX
-    package."""
-    sb, _ = ozaki._slice_params(K, config.PRECISION_BITS)
-    return sb in (5, 6)
+    """Whether a K-deep contraction is in the deep regime, 1024 < K <=
+    16384: where the JAX package's bf16 slice rule at 30 bits gives 5-
+    or 6-bit slices."""
+    return 1024 < K <= 16384
 
 
 def _ctrlmat_contract(n_opers_transformed, integral, basis_transformed,
@@ -866,12 +882,9 @@ def calculate_control_matrix_from_scratch(
             n_opers, n_coeffs[:, sl], dt[sl], t[sl])
         contrib, ratio = _ctrlmat_contract(n_t, integral, b_t, ph, 'stat',
                                            mode)
-        if mode == 'ozaki' and config.ESCALATION_TOL > 0:
-            escalated = config.ESCALATION_TOL < ratio.item()
-            tracing.counts['sync.ctrlmat_escalation'] += 1
-            if tracing.decision(escalated):
-                contrib, _ = _ctrlmat_contract(n_t, integral, b_t, ph,
-                                               'force', mode)
+        if mode == 'ozaki' and _escalates(ratio, config.ESCALATION_TOL):
+            contrib, _ = _ctrlmat_contract(n_t, integral, b_t, ph, 'force',
+                                           mode)
         result = result + contrib
     return result
 
@@ -1627,9 +1640,6 @@ def _second_order_diag_shifts(eigvals, n_opers_transformed,
     with tracing.span('ff.so.shifts'):
         G, n_w = eigvals.shape[-2], omega.shape[-1]
         n_s = weights.shape[0]
-        tracing.counts['so.shifts.calls'] += 1
-        if n_s == 1:
-            tracing.counts['so.shifts.shared'] += 1
 
         # complete steps: conj(sum_g (B_step w)[g, a] @ B_cumul[g, a]^H),
         # the conjugate transpose read in place

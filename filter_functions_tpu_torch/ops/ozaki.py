@@ -32,31 +32,16 @@ from . import dword, products
 #: int8 digit width: 7-bit digits keep every K <= 2^17 slice product sum
 #: exact in the int32 accumulator.
 _INT8_SLICE_BITS = 7
-#: f32 accumulator mantissa budget (the bf16 slice rule).
-_ACC_BITS = 24
-#: bf16 holds integers up to 2^8 exactly (the bf16 slice rule).
-_MAX_SLICE_BITS = 8
 #: Fixed-point width of the B and C factors: the int32 headroom limit of
 #: the 12-bit-split outer words.
 _FACTOR_BITS = 23
 
 
-def _slice_params(K: int, precision_bits: int,
-                  mxu: str = 'bf16') -> Tuple[int, int]:
-    """(slice_bits, n_slices) of a K-deep reduction.
-
-    'int8' is the rule of the int8 route; 'bf16' is the JAX package's
-    bf16 rule, which the port keeps only because the contraction decides
-    whether it is "deep" by it."""
-    if mxu == 'int8':
-        slice_bits = min(_INT8_SLICE_BITS,
-                         (31 - math.ceil(math.log2(max(K, 2)))) // 2)
-        max_level = max(1, -(-(precision_bits + 1) // slice_bits) - 1)
-    else:
-        slice_bits = min(
-            _MAX_SLICE_BITS,
-            (_ACC_BITS - math.ceil(math.log2(max(K, 2)))) // 2)
-        max_level = max(1, -(-precision_bits // slice_bits) - 1)
+def _slice_params(K: int, precision_bits: int) -> Tuple[int, int]:
+    """(slice_bits, n_slices) of a K-deep reduction on the int8 route."""
+    slice_bits = min(_INT8_SLICE_BITS,
+                     (31 - math.ceil(math.log2(max(K, 2)))) // 2)
+    max_level = max(1, -(-(precision_bits + 1) // slice_bits) - 1)
     return slice_bits, max_level + 1
 
 
@@ -287,7 +272,7 @@ def _ozaki_outer_forward(p_re, p_im, b_re, b_im, c_re, c_im,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward pass of :func:`ozaki_matmul_c_outer`."""
     K = p_re.shape[-1]
-    slice_bits, n_p = _slice_params(K, precision_bits, 'int8')
+    slice_bits, n_p = _slice_params(K, precision_bits)
     if slice_bits not in (5, 6, 7) or K <= 256:
         raise ValueError('factored path requires slice_bits in (5..7) '
                          f'and deep K > 256, got slice_bits={slice_bits} '

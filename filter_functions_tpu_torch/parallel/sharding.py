@@ -214,7 +214,7 @@ def _replicated(p: functional.PulseArrays, mesh) -> functional.PulseArrays:
 
 
 def _max_over(mesh, dim: Optional[str]):
-    """The escalation hook of :func:`.functional._escalates`: the largest
+    """The escalation hook of :func:`.numeric._escalates`: the largest
     ratio over mesh dimension *dim*, in the ratio's dtype."""
     def ratio_max(worst: torch.Tensor) -> torch.Tensor:
         buf = worst.detach().to(torch.float64).reshape(1).clone()

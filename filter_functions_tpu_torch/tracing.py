@@ -49,34 +49,28 @@ The backward has no span of its own: autograd opens
 
 :data:`counts` counts the host's reads of the device and the escalation
 decisions, each at the site that makes it, after the value is on the
-host, the work of the slice products, and how often the frequency
-shifts share one lattice among the noise operators; clear it with
+host, and the work of the slice products; clear it with
 ``counts.clear()``.
 
-===========================  ============================================
-Counter                      Incremented by
-===========================  ============================================
-``sync.escalation``          :func:`.functional._escalates` reading the
-                             batch's largest quantization ratio
-``sync.degenerate``          :func:`.numeric._reaches_degenerate` reading
-                             whether an eigenspace is degenerate
-``sync.ctrlmat_escalation``  :func:`.numeric.
-                             calculate_control_matrix_from_scratch`
-                             reading a chunk's quantization ratio
-``sync.expm``                :func:`.numeric._expm` reading the norm
-``escalation.decisions``     each of the two escalation decisions above
-``escalation.escalated``     each decision that recomputes at full
-                             precision
-``ozaki.int8_ops``           :func:`.ops.ozaki._outer_contract`, by the
-                             int8 operations of its slice products,
-                             3 B sum_pairs 2 M K N (unpadded, on every
-                             device)
-``so.shifts.calls``          each call of :func:`.numeric.
-                             _second_order_diag_shifts`
-``so.shifts.shared``         each such call that built one weighted K2
-                             lattice for all noise operators (one
-                             spectrum row)
-===========================  ============================================
+=========================  ==============================================
+Counter                    Incremented by
+=========================  ==============================================
+``sync.escalation``        :func:`.numeric._escalates` reading the
+                           largest quantization ratio of a batch
+                           (:mod:`.functional`) or of a chunk of segments
+                           (:func:`.numeric.
+                           calculate_control_matrix_from_scratch`)
+``sync.degenerate``        :func:`.numeric._reaches_degenerate` reading
+                           whether an eigenspace is degenerate
+``sync.expm``              :func:`.numeric._expm` reading the norm
+``escalation.decisions``   each decision of :func:`.numeric._escalates`
+``escalation.escalated``   each decision that recomputes at full
+                           precision
+``ozaki.int8_ops``         :func:`.ops.ozaki._outer_contract`, by the
+                           int8 operations of its slice products,
+                           3 B sum_pairs 2 M K N (unpadded, on every
+                           device)
+=========================  ==============================================
 
 The port's other counters stay in their modules:
 :data:`.ops.dword.launches` and :data:`.ops.products.launches` (launches

@@ -16,10 +16,10 @@ import filter_functions_tpu as ff
 import filter_functions_tpu_torch as fft
 from filter_functions_tpu import functional as jfunctional
 from filter_functions_tpu import numeric as jnumeric
-from filter_functions_tpu_torch import convert, functional, numeric, tracing
+from filter_functions_tpu_torch import convert, functional, numeric
 from filter_functions_tpu_torch.superoperator import liouville_is_CP
 from testutil import make_pulse, rand_pulse_arrays
-from torch_testutil import fft_cpu
+from torch_testutil import fft_cpu, record_lattice_rows
 
 KINDS = ['shared', 'per_operator', 'cross', 'complex_cross']
 
@@ -449,7 +449,8 @@ def test_second_order_etm_gradient_in_segment_chunks(kind):
 @pytest.mark.parametrize('make', [_degenerate_pulse,
                                   _partially_degenerate_pulse],
                          ids=['degenerate', 'partial'])
-def test_second_order_etm_gradient_one_row_equals_equal_rows(make, entry):
+def test_second_order_etm_gradient_one_row_equals_equal_rows(make, entry,
+                                                             monkeypatch):
     """A spectrum shared by both noise operators, given 1-d (one weighted
     K2 lattice for both, in the shifts and in the backward of their
     degenerate-eigenspace term) and as two materialised equal rows (one
@@ -463,14 +464,15 @@ def test_second_order_etm_gradient_one_row_equals_equal_rows(make, entry):
     rng = np.random.default_rng(18)
     weights = torch.tensor(rng.standard_normal(
         (*p.c_coeffs.shape[:-2], len(basis), len(basis))))
+    built = record_lattice_rows(monkeypatch)
     etms, grads = [], []
-    for spectrum, n_shared in ((shared, 1), (np.tile(shared, (2, 1)), 0)):
-        before = tracing.counts['so.shifts.shared']
+    for spectrum, n_rows in ((shared, 1), (np.tile(shared, (2, 1)), 2)):
+        built.clear()
         etms.append(functional._etm_core(p, spectrum, torch.as_tensor(omega),
                                          basis, True))
         grads.append(_etm_grad(
             _etm_loss(p, basis, spectrum, omega, True, weights), p.c_coeffs))
-        assert tracing.counts['so.shifts.shared'] - before == 2 * n_shared
+        assert built and set(built) == {n_rows}
     np.testing.assert_allclose(etms[0].numpy(), etms[1].numpy(), rtol=0,
                                atol=1e-13)
     np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(), rtol=0,

@@ -225,8 +225,8 @@ def test_deep_quant_ratio_matches_jax():
 
 def test_contraction_mode_and_deep_regime():
     """contract=None resolves by device, as config.contraction_mode
-    resolves by backend; the flagship K = 3328 is deep by the bf16
-    rule, K = 64 (d = 4, G = 4) is not."""
+    resolves by backend; the flagship K = 3328 is deep, K = 64 (d = 4,
+    G = 4) is not."""
     assert config.contraction_mode(torch.device('cpu')) == 'native'
     assert config.contraction_mode(torch.device('cuda', 0)) == 'ozaki'
     assert config.contraction_mode('cpu', 'ozaki') == 'ozaki'

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from filter_functions_tpu.ops import ozaki as jozaki
-from filter_functions_tpu_torch import tracing
+from filter_functions_tpu_torch import numeric, tracing
 from filter_functions_tpu_torch.ops import dword, ozaki, products
 from torch_testutil import products_inputs
 
@@ -122,16 +122,17 @@ def test_slice_fixed_point_matches_jax(case, exact_exp2):
 
 
 def test_slice_params_match_jax():
-    """Both slice rules, over the depths and truncation levels the
-    package uses (the bf16 rule decides "deep", the int8 rule the digit
-    width)."""
-    for K in (2, 100, 257, 1024, 2048, 3328, 4096, 16384, 2**17):
+    """The int8 slice rule over the depths and truncation levels the
+    package uses, and the deep regime (numeric._is_deep) against the JAX
+    package's bf16 rule, which decides "deep" by 5- or 6-bit slices."""
+    for K in (2, 100, 257, 1024, 1025, 2048, 3328, 4096, 16384, 16385,
+              2**17):
         for bits in (24, 30, 52):
-            for mxu in ('int8', 'bf16'):
-                assert ozaki._slice_params(K, bits, mxu) == \
-                    jozaki._slice_params(K, bits, mxu), (K, bits, mxu)
-    assert ozaki._slice_params(3328, 24, 'int8') == (7, 4)
-    assert ozaki._slice_params(3328, 30, 'bf16')[0] == 6
+            assert ozaki._slice_params(K, bits) == \
+                jozaki._slice_params(K, bits, 'int8'), (K, bits)
+        assert numeric._is_deep(K) == \
+            (jozaki._slice_params(K, 30, 'bf16')[0] in (5, 6)), K
+    assert ozaki._slice_params(3328, 24) == (7, 4)
 
 
 def test_double_single_helpers_match_jax():
@@ -393,7 +394,7 @@ def _route_operands(args):
     single (M, K) product: (pr, pi, ps, outs, slice_bits)."""
     p_re, p_im, b_re, b_im, c_re, c_im = (a[None] for a in args)
     K = p_re.shape[-1]
-    slice_bits, n_p = ozaki._slice_params(K, 24, 'int8')
+    slice_bits, n_p = ozaki._slice_params(K, 24)
     n_d = -(-30 // slice_bits)
     n_p = max(n_p, n_d)
     pr = ozaki._slice_fixed_point(p_re, n_p, slice_bits)

@@ -17,9 +17,9 @@ import torch
 
 import filter_functions_tpu_torch as fft
 from filter_functions_tpu import numeric as jnumeric
-from filter_functions_tpu_torch import numeric, tracing, util
+from filter_functions_tpu_torch import numeric, util
 from testutil import make_pulse, rand_pulse_arrays
-from torch_testutil import fft_cpu
+from torch_testutil import fft_cpu, record_lattice_rows
 
 
 def _np(x):
@@ -305,28 +305,28 @@ def _two(x):
 
 @pytest.mark.parametrize('budget_bytes', [None, 1], ids=['whole', 'chunked'])
 @pytest.mark.parametrize('batched', [False, True], ids=['single', 'batched'])
-def test_diag_shifts_one_row_equals_equal_rows(batched, budget_bytes):
+def test_diag_shifts_one_row_equals_equal_rows(batched, budget_bytes,
+                                               monkeypatch):
     """A spectrum shared by the three noise operators, given as its one
     row of weights (one weighted K2 lattice for all operators) and as
     three materialised equal rows (one lattice each): the shifts agree
     within 1e-13 max|Delta|, for one pulse and a batch of two, in one
-    chunk and in chunks of one segment, and the counters say which ran:
-    so.shifts.shared once for the one row, not for the equal rows."""
+    chunk and in chunks of one segment, and every chunk's weighted
+    lattice has one row for the one row and three for the equal rows."""
     args = _shift_inputs(seed=33)
     if batched:
         args = (*map(_two, args[:5]), args[5], _two(args[6]))
     omega = args[5]
     rows = numeric._spectral_weights(2e-3 / omega ** 0.8, omega, 3)
     assert rows.stride(0) != 0
-    tracing.counts.clear()
+    built = record_lattice_rows(monkeypatch)
     one = numeric._second_order_diag_shifts(*args, rows[:1], budget_bytes)
-    assert dict(tracing.counts) == {'so.shifts.calls': 1,
-                                    'so.shifts.shared': 1}
+    assert built and set(built) == {1}
+    built.clear()
     equal = numeric._second_order_diag_shifts(*args, rows, budget_bytes)
-    assert dict(tracing.counts) == {'so.shifts.calls': 2,
-                                    'so.shifts.shared': 1}
-    tracing.counts.clear()
+    assert built and set(built) == {3}
     _close(one, equal, 1e-13)
+
 
 
 @pytest.mark.parametrize('spectrum, n_s', [

@@ -4,6 +4,8 @@ change no value; the counters count each read of the device and each
 escalation decision at its site, and the int8 operations of the Ozaki
 slice products."""
 import contextlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ import torch
 
 from filter_functions_tpu_torch import functional, numeric, tracing
 from filter_functions_tpu_torch.basis import Basis
+from torch_testutil import record_lattice_rows
 
 D, G, BATCH, CHUNK = 4, 80, 4, 2     # K = G d^2 = 1280: the deep route
 OZAKI_NODE = 'autograd::engine::evaluate_function: _OzakiOuterBackward'
@@ -180,7 +183,7 @@ def test_control_matrix_escalation_counts(pulse, monkeypatch, tol,
         numeric.calculate_control_matrix_from_scratch(
             w, v, props, omega, p.basis, p.n_opers, p.n_coeffs[0], p.dt[0],
             contract='ozaki', budget_bytes=1 << 30)
-    want = {'sync.ctrlmat_escalation': 1, 'escalation.decisions': 1,
+    want = {'sync.escalation': 1, 'escalation.decisions': 1,
             'escalation.escalated': escalated,
             'ozaki.int8_ops': PULSE_INT8_OPS}
     assert got == {k: v for k, v in want.items() if v}
@@ -236,23 +239,24 @@ def test_spans_of_the_error_transfer_matrix(pulse, second_order):
         assert not _ranges(events, 'ff.so.shifts')
 
 
-@pytest.mark.parametrize('order, kind, shifts', [
-    (1, 'diagonal', {}),
-    (2, 'diagonal', {'so.shifts.calls': 1, 'so.shifts.shared': 1}),
-    (2, 'cross', {})], ids=['first', 'second', 'second_cross'])
-def test_shift_counts_of_the_error_transfer_matrix(pulse, order, kind,
-                                                   shifts):
-    """The second order of a diagonal spectrum calls the shifts once a
-    batch, with one lattice for the pulses' one noise operator; the
-    first order and a cross-spectrum call them not at all.  Each call
-    reads the device once, for the exponential."""
+@pytest.mark.parametrize('order, kind, rows', [
+    (1, 'diagonal', set()), (2, 'diagonal', {1}), (2, 'cross', set())],
+    ids=['first', 'second', 'second_cross'])
+def test_shift_counts_of_the_error_transfer_matrix(pulse, monkeypatch,
+                                                   order, kind, rows):
+    """The second order of a diagonal spectrum builds the shifts' weighted
+    K2 lattice with one row of weights for the pulses' one noise
+    operator; the first order and a cross-spectrum build none.  Each
+    call reads the device once, for the exponential."""
     p, spectrum, omega = pulse
     if kind == 'cross':
         spectrum = spectrum[None, None]
+    built = record_lattice_rows(monkeypatch)
     with _delta() as got:
         functional.batched_error_transfer_matrix(
             p, spectrum, omega, Basis.ggm(D), second_order=order == 2)
-    assert got == {'sync.expm': 1, **shifts}
+    assert got == {'sync.expm': 1}
+    assert set(built) == rows
 
 
 def test_cross_spectrum_takes_the_total_span(pulse):
@@ -284,3 +288,17 @@ def test_no_range_without_a_profiler(pulse, monkeypatch):
     functional.batched_error_transfer_matrix(p, spectrum, omega,
                                              Basis.ggm(D), second_order=True)
     assert opened == []
+
+
+def test_tables_list_the_spans_and_counters():
+    """tracing's docstring tables name exactly the spans the package opens
+    and the counters it increments."""
+    doc = tracing.__doc__
+    spans_doc = doc[doc.index('Span '):doc.index('The backward')]
+    counters_doc = doc[doc.index('Counter '):doc.index('The port\'s other')]
+    source = ''.join(path.read_text() for path in
+                     Path(tracing.__file__).parent.rglob('*.py'))
+    assert set(re.findall(r"tracing\.span\('([\w.]+)'\)", source)) == \
+        set(re.findall(r'^``([\w.]+)``', spans_doc, re.M))
+    assert set(re.findall(r"(?:tracing\.)?counts\['([\w.]+)'\]", source)) \
+        == set(re.findall(r'^``([\w.]+)``', counters_doc, re.M))

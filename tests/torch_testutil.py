@@ -12,7 +12,8 @@ each rank checks that it never does.
 
 :func:`products_inputs` makes random arguments of the Ozaki route's slice
 products (``ops.ozaki._outer_contract``), for the tests and for
-``chip_smoke.py``'s phase 3b.
+``chip_smoke.py``'s phase 3b.  :func:`record_lattice_rows` records the
+weighted K2 lattices that the frequency shifts build.
 """
 import contextlib
 import functools
@@ -112,6 +113,21 @@ def products_inputs(batch, M, K, N, slice_bits, device, seed,
              pow2(-40, -10, (batch, N), torch.float64)[..., None, :])
             for t in range(3)]
     return (*sides, outs)
+
+
+def record_lattice_rows(monkeypatch) -> list:
+    """A list that gets the number of rows of weights of every weighted
+    K2 lattice of the frequency shifts
+    (``numeric._factored_weighted_lattice``) built from now on."""
+    from filter_functions_tpu_torch import numeric
+    built = []
+    build = numeric._factored_weighted_lattice
+
+    def recorded(omega, eigvals, dt, weights):
+        built.append(weights.shape[0])
+        return build(omega, eigvals, dt, weights)
+    monkeypatch.setattr(numeric, '_factored_weighted_lattice', recorded)
+    return built
 
 
 def _np(x):
