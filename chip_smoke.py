@@ -1040,20 +1040,17 @@ def flagship_shift_inputs(device):
     """7c(iii)'s inputs: the arguments of ``numeric.
     _second_order_diag_shifts`` that ``functional._etm_core`` builds for
     row 0 of the flagship batch (eigenvalues, transformed noise operators
-    and basis, per-step and padded cumulative control matrices, omega,
-    dt, the one row of weights of S = 1e-4/omega, which serves all
-    noise operators)."""
+    and basis, per-step control matrices, omega, dt, the one row of
+    weights of S = 1e-4/omega, which serves all noise operators)."""
     batched, omega, spectrum = flagship_inputs(device)
     p = batched._replace(c_coeffs=batched.c_coeffs[0],
                          n_coeffs=batched.n_coeffs[0], dt=batched.dt[0])
     eigvals, (_, n_t, b_t, ph, integral), _ = functional._prep(
         p, p.c_coeffs, p.n_coeffs, p.dt, omega)
     step = numeric._ctrlmat_step_contract(n_t, integral, b_t, ph)
-    cumul_padded = numeric._pad_cumulative(
-        step, step.cumsum(-4)[..., :-1, :, :, :])
     weights = numeric._spectral_weights(spectrum, omega, p.n_opers.shape[0])
     rows = weights[:numeric._distinct_rows(spectrum)]
-    return eigvals, n_t, b_t, step, cumul_padded, omega, p.dt, rows
+    return eigvals, n_t, b_t, step, omega, p.dt, rows
 
 
 def _peak_above(fn, device) -> int:
@@ -1164,7 +1161,7 @@ def second_order_tables(device) -> int:
     if not torch.isfinite(shifts).all():
         raise AssertionError('7c(iii): the shifts are not finite')
     del shifts
-    eigvals, _, _, _, _, omega, dt, weights = args
+    eigvals, _, _, _, omega, dt, weights = args
     _reduced_terms_agree('7c(iii)', omega, eigvals, dt, weights,
                          WIDE_LATTICE_PARITY)
     segment_memory('7c(iii)', omega, eigvals, dt, weights)

@@ -252,11 +252,14 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
 
     A real diagonal spectrum folds S w_trapz / 2 pi into the decay
     amplitudes ('ako,ao,alo->akl') and the frequency shifts
-    (:func:`.numeric._second_order_diag_shifts`, with one weighted K2
-    lattice for each distinct row of the spectrum, one for all noise
-    operators where one row serves them all), so neither the
-    (a, k, l, w) integrand nor F^(2) exists; other spectra integrate
-    the integrand of the control matrix and of F^(2).  The second-order
+    (:func:`.numeric._second_order_diag_shifts`: the complete steps as
+    a running sum over segments that reads the per-step control
+    matrices in place, one weighted K2 lattice for each distinct row of
+    the spectrum, one for all noise operators where one row serves them
+    all), so neither the (a, k, l, w) integrand, F^(2) nor a cumulative
+    control matrix exists; other spectra integrate the integrand of the
+    control matrix and of F^(2), whose complete steps take the padded
+    cumulative control matrices.  The second-order
     terms run over chunks of segments that fit
     :func:`.config.memory_budget` (*budget_bytes* overrides it).  The
     trace contraction takes the basis's precombined combos for n <= 64
@@ -303,8 +306,6 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
                     control_matrix=ctrl), omega)
         delta = None
         if second_order:
-            cumul_padded = numeric._pad_cumulative(
-                step, step.cumsum(-4)[..., :-1, :, :, :])
             # the distinct rows of the weights: one lattice for each
             rows = weights[:numeric._distinct_rows(s)] if diagonal else None
             incomplete = numeric._degenerate_incomplete_steps(
@@ -312,12 +313,14 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
                 budget_bytes)
             if diagonal:
                 shifts = numeric._second_order_diag_shifts(
-                    eigvals, n_t, b_t, step, cumul_padded, omega, p.dt,
-                    rows, budget_bytes)
+                    eigvals, n_t, b_t, step, omega, p.dt, rows,
+                    budget_bytes)
                 if incomplete is not None:
                     shifts = shifts + incomplete
                 delta = shifts.real
             else:
+                cumul_padded = numeric._pad_cumulative(
+                    step, step.cumsum(-4)[..., :-1, :, :, :])
                 f2 = numeric._second_order_total(eigvals, n_t, b_t, step,
                                                  cumul_padded, omega, p.dt,
                                                  budget_bytes)

@@ -1614,37 +1614,71 @@ def _folded_decay_amplitudes(control_matrix: torch.Tensor,
                         weights.to(config.COMPLEX), control_matrix).real
 
 
+def _complete_step_shifts(ctrlmat_step: torch.Tensor, weights: torch.Tensor
+                          ) -> torch.Tensor:
+    r"""The complete-step term of the frequency shifts of a real diagonal
+    spectrum, sum_g conj(B_g W C_g^H) with C_g = sum_{g' < g} B_{g'} and
+    W = diag(*weights*), as a running sum over the segments.
+
+    W is real, so B_g W C_g^H = B_g (W C_g)^H: one running buffer
+    Cw = sum_{g' < g} w B_{g'} (..., n_nops, n_b, n_w) serves every
+    segment, and per leading index and segment one batched product
+    conj(B_g) @ Cw^T accumulates.  Cw takes B_step's layout, so its
+    update is one aligned elementwise pass, and both operands of the
+    product are views with the frequency axis strided, which cuBLAS
+    reads transposed, the conjugate as its op: no cumulative, weighted
+    or copied tensor of B_step's size is made.  Out-of-place, so
+    autograd runs through it.
+
+    ctrlmat_step (..., G, n_nops, n_b, n_w); *weights* (n_s, n_w) real,
+    n_s = 1 or n_nops.  Returns (..., n_nops, n_b, n_b) complex.
+    """
+    lead = ctrlmat_step.shape[:-4]
+    n_nops, n_basis = ctrlmat_step.shape[-3:-1]
+    # complex, so that the update runs without a cast: exact, w + 0j
+    w = weights.to(ctrlmat_step.dtype)[:, None, :]
+    cw = torch.zeros_like(ctrlmat_step[..., 0, :, :, :])
+    rows = list(np.ndindex(*lead))
+    acc = [ctrlmat_step.new_zeros(n_nops, n_basis, n_basis) for _ in rows]
+    for g in range(1, ctrlmat_step.shape[-4]):
+        cw = torch.addcmul(cw, ctrlmat_step[..., g - 1, :, :, :], w)
+        for i, row in enumerate(rows):
+            acc[i] = torch.baddbmm(acc[i], ctrlmat_step[row + (g,)].conj(),
+                                   cw[row].mT)
+    return torch.stack(acc).reshape(*lead, n_nops, n_basis, n_basis)
+
+
 def _second_order_diag_shifts(eigvals, n_opers_transformed,
-                              basis_transformed, ctrlmat_step, cumul_padded,
-                              omega, dt, weights,
-                              budget_bytes: Optional[int] = None
+                              basis_transformed, ctrlmat_step, omega, dt,
+                              weights, budget_bytes: Optional[int] = None
                               ) -> torch.Tensor:
     r"""Frequency shifts Delta[a, k, l] for diagonal spectra without the
     (a, b, k, l, w) second-order filter function.
 
     A diagonal spectrum reads only the a == b diagonal of F^(2).  The
-    complete steps contract over w in one (g, a)-batched matmul and sum
-    over g; the incomplete steps reduce each chunk of segments over w
-    first, to ell (g, s, ij, mn) from the separable tables of the K2
-    lattice (:func:`_factored_weighted_lattice`), once for each of the
-    n_s rows of *weights*, and sandwich the result between the
+    complete steps accumulate segment by segment on one running
+    weighted sum of the per-step control matrices
+    (:func:`_complete_step_shifts`), reading *ctrlmat_step* in place:
+    this route builds no cumulative control matrix.  The incomplete
+    steps reduce each chunk of segments over w first, to ell (g, s, ij,
+    mn) from the separable tables of the K2 lattice
+    (:func:`_factored_weighted_lattice`), once for each of the n_s rows
+    of *weights*, and sandwich the result between the
     noise-operator/basis products (:func:`_by_row`).  The chunks fit
     :func:`.config.memory_budget` (*budget_bytes* overrides it) with the
     tables of n_s rows.
 
-    Shapes as :func:`_second_order_total`; *weights* (n_s, n_w) real,
-    S(w) w_trapz / 2 pi, with n_s = 1 (one spectrum for every noise
-    operator: one lattice serves them all) or n_nops.  Returns complex
-    (..., n_nops, n_b, n_b); its real part is the physical shift.
+    eigvals (..., G, d), n_opers_transformed (..., n_nops, G, d, d),
+    basis_transformed (..., G, n_b, d, d), ctrlmat_step (..., G, n_nops,
+    n_b, n_w), dt (..., G); *weights* (n_s, n_w) real, S(w) w_trapz /
+    2 pi, with n_s = 1 (one spectrum for every noise operator: one
+    lattice serves them all) or n_nops.  Returns complex (..., n_nops,
+    n_b, n_b); its real part is the physical shift.
     """
     with tracing.span('ff.so.shifts'):
         G, n_w = eigvals.shape[-2], omega.shape[-1]
         n_s = weights.shape[0]
-
-        # complete steps: conj(sum_g (B_step w)[g, a] @ B_cumul[g, a]^H),
-        # the conjugate transpose read in place
-        shifts = ((ctrlmat_step * weights[:, None, :])
-                  @ cumul_padded.mH).sum(-4).conj()
+        shifts = _complete_step_shifts(ctrlmat_step, weights)
 
         nob = _noise_basis_products(n_opers_transformed, basis_transformed)
         chunk = _shifts_chunk(eigvals, n_w, n_s, budget_bytes)

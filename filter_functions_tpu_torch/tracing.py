@@ -24,7 +24,9 @@ Span                   Where
                        decay amplitudes
 ``ff.so.shifts``       :func:`.numeric._second_order_diag_shifts`: the
                        frequency shifts of a diagonal spectrum, the
-                       complete-step product and the chunks of the
+                       complete steps accumulated segment by segment on
+                       a running weighted sum (no cumulative control
+                       matrix is built) and the chunks of the
                        separable K2 tables, whose weighted lattice is
                        built once per distinct spectrum row (once for
                        all noise operators where they share one row)

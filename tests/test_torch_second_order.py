@@ -14,10 +14,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import filter_functions_tpu_torch as fft
 from filter_functions_tpu import numeric as jnumeric
-from filter_functions_tpu_torch import numeric, util
+from filter_functions_tpu_torch import functional, numeric, util
 from testutil import make_pulse, rand_pulse_arrays
 from torch_testutil import fft_cpu, record_lattice_rows
 
@@ -251,15 +253,14 @@ def test_second_order_chunking_and_intermediates():
 def _shift_inputs(seed=31, n_omega=30):
     """A random d = 3 pulse of 4 segments and 3 noise operators: the
     arguments of ``numeric._second_order_diag_shifts`` before the
-    weights (eigvals, n_t, b_t, step, padded cumulative, omega, dt)."""
+    weights (eigvals, n_t, b_t, step, omega, dt)."""
     _, p = _pair(3, 4, seed)
     omega = _t(np.geomspace(0.1, 20, n_omega))
     p.diagonalize()
-    n_t, b_t, step, cumul = numeric._second_order_step_terms(
+    n_t, b_t, step, _ = numeric._second_order_step_terms(
         p.eigvals, p.eigvecs, p.propagators, omega, p.basis.tensor('cpu'),
         p.n_opers_dev, _t(p.n_coeffs), _t(p.dt), _t(p.t))
-    return (p.eigvals, n_t, b_t, step, numeric._pad_cumulative(step, cumul),
-            omega, _t(p.dt))
+    return p.eigvals, n_t, b_t, step, omega, _t(p.dt)
 
 
 @pytest.mark.parametrize('kind', ['shared', 'per_operator', 'one_row'])
@@ -271,7 +272,7 @@ def test_diag_shifts_match_integrated_f2(kind):
     batched over two pulses, each equal to its single evaluation.  A
     shared spectrum as three equal rows of weights ('shared') or as the
     one row that serves all three operators ('one_row')."""
-    eigvals, n_t, b_t, step, padded, omega, dt = _shift_inputs()
+    eigvals, n_t, b_t, step, omega, dt = _shift_inputs()
     s = 1e-3 / omega
     if kind == 'per_operator':
         s = torch.outer(_t([1.0, 0.5, 2.0]), s)
@@ -279,9 +280,11 @@ def test_diag_shifts_match_integrated_f2(kind):
     if kind == 'one_row':
         weights = weights[:1]
     got = numeric._second_order_diag_shifts(eigvals, n_t, b_t, step,
-                                            padded, omega, dt, weights)
-    f2 = numeric._second_order_total(eigvals, n_t, b_t, step, padded,
-                                     omega, dt)
+                                            omega, dt, weights)
+    f2 = numeric._second_order_total(
+        eigvals, n_t, b_t, step,
+        numeric._pad_cumulative(step, step.cumsum(-4)[..., :-1, :, :, :]),
+        omega, dt)
     want = numeric._integrate_2pi(numeric._get_integrand(
         s, omega, np.arange(3), 'total', 'generalized', filter_function=f2),
         omega)
@@ -289,11 +292,10 @@ def test_diag_shifts_match_integrated_f2(kind):
     assert numeric._factored_chunk(eigvals, 30, 0) == len(eigvals)
     assert numeric._factored_chunk(eigvals, 30, 0, budget_bytes=1) == 1
     chunked = numeric._second_order_diag_shifts(
-        eigvals, n_t, b_t, step, padded, omega, dt, weights, budget_bytes=1)
+        eigvals, n_t, b_t, step, omega, dt, weights, budget_bytes=1)
     _close(chunked, got, 1e-13)
     stacked = numeric._second_order_diag_shifts(
-        *map(_two, (eigvals, n_t, b_t, step, padded)), omega, _two(dt),
-        weights)
+        *map(_two, (eigvals, n_t, b_t, step)), omega, _two(dt), weights)
     torch.testing.assert_close(stacked[0], got, rtol=0,
                                atol=1e-15 * got.abs().max().item())
 
@@ -315,8 +317,8 @@ def test_diag_shifts_one_row_equals_equal_rows(batched, budget_bytes,
     lattice has one row for the one row and three for the equal rows."""
     args = _shift_inputs(seed=33)
     if batched:
-        args = (*map(_two, args[:5]), args[5], _two(args[6]))
-    omega = args[5]
+        args = (*map(_two, args[:4]), args[4], _two(args[5]))
+    omega = args[4]
     rows = numeric._spectral_weights(2e-3 / omega ** 0.8, omega, 3)
     assert rows.stride(0) != 0
     built = record_lattice_rows(monkeypatch)
@@ -327,6 +329,116 @@ def test_diag_shifts_one_row_equals_equal_rows(batched, budget_bytes,
     assert built and set(built) == {3}
     _close(one, equal, 1e-13)
 
+
+
+@pytest.mark.parametrize('budget_bytes', [None, 1],
+                         ids=['one_chunk', 'chunked'])
+@pytest.mark.parametrize('batched', [False, True], ids=['single', 'batched'])
+@pytest.mark.parametrize('n_s', [1, 3], ids=['one_row', 'per_operator'])
+def test_running_complete_steps_equal_the_cumulative_formula(
+        n_s, batched, budget_bytes):
+    """The complete steps accumulated segment by segment on a running
+    weighted sum (``numeric._complete_step_shifts``) equal the formula
+    on the padded cumulative control matrices within 1e-13 max|Delta|,
+    for one row of weights and one a noise operator, one pulse and a
+    batch of two; and the whole shifts, in one chunk and in chunks of
+    one segment, equal that formula plus the incomplete steps (the
+    shifts of zero per-step control matrices)."""
+    eigvals, n_t, b_t, step, omega, dt = _shift_inputs(seed=35)
+    if batched:
+        eigvals, n_t, b_t, step, dt = map(_two, (eigvals, n_t, b_t, step,
+                                                 dt))
+    s = torch.outer(_t([1.0, 0.5, 2.0]), 2e-3 / omega ** 0.8)
+    weights = numeric._spectral_weights(s, omega, 3)[:n_s]
+    cumul_padded = numeric._pad_cumulative(
+        step, step.cumsum(-4)[..., :-1, :, :, :])
+    want = ((step * weights[:, None, :]) @ cumul_padded.mH).sum(
+        -4).conj().resolve_conj()
+    _close(numeric._complete_step_shifts(step, weights), want, 1e-13)
+
+    def shifts(ctrlmat_step):
+        return numeric._second_order_diag_shifts(
+            eigvals, n_t, b_t, ctrlmat_step, omega, dt, weights,
+            budget_bytes)
+    _close(shifts(step), want + shifts(torch.zeros_like(step)), 1e-13)
+
+
+class _Outputs(TorchDispatchMode):
+    """Records every operator that is not a view: its name and the
+    element counts of the tensors it returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not func.is_view:
+            self.ops.append((func.name(), {
+                t.numel() for t in pytree.tree_leaves(out)
+                if isinstance(t, torch.Tensor)}))
+        return out
+
+
+@pytest.mark.parametrize('call', ['shifts', 'etm', 'etm_cross'])
+def test_diagonal_shifts_copy_no_step_matrices(call, monkeypatch):
+    """Past ``numeric._ctrlmat_step_contract``, the diagonal route makes
+    no tensor of B_step's size, nor of one row's segment, calls no
+    cumsum and reaches no ``_pad_cumulative``: the complete steps read
+    B_step in place.  A batch of two d = 3 pulses of 4 segments, 3
+    noise operators and 23 frequencies, where nothing else has either
+    size; the shifts alone ('shifts', one row of weights) and the whole
+    ETM ('etm', a spectrum per noise operator).  The cross-spectrum
+    route ('etm_cross'), which takes the padded cumulative sums, shows
+    that the records see them."""
+    arrays = rand_pulse_arrays(3, 4, n_nops=3,
+                               local_rng=np.random.default_rng(37))
+    pulse = make_pulse(arrays, cls=fft_cpu)
+    p = functional.make_pulse_arrays(pulse)
+    p = p._replace(c_coeffs=torch.stack([p.c_coeffs, 0.9 * p.c_coeffs]),
+                   n_coeffs=torch.stack([p.n_coeffs] * 2),
+                   dt=torch.stack([p.dt, 1.1 * p.dt]))
+    omega = _t(np.geomspace(0.1, 20, 23))
+    spectrum = torch.outer(_t([1.0, 0.5, 2.0]), 1e-3 / omega)
+    if call == 'etm_cross':
+        spectrum = torch.diag_embed(spectrum.T).movedim(0, -1) + 0j
+    mode, steps, padded = _Outputs(), [], []
+    contract, pad = numeric._ctrlmat_step_contract, numeric._pad_cumulative
+
+    def recorded_contract(*args):
+        step = contract(*args)
+        steps.append((len(mode.ops), step))
+        return step
+
+    def recorded_pad(*args):
+        padded.append(len(mode.ops))
+        return pad(*args)
+    monkeypatch.setattr(numeric, '_ctrlmat_step_contract', recorded_contract)
+    monkeypatch.setattr(numeric, '_pad_cumulative', recorded_pad)
+    if call == 'shifts':
+        eigvals, (_, n_t, b_t, ph, integral), _ = functional._prep(
+            p, p.c_coeffs, p.n_coeffs, p.dt, omega)
+        step = numeric._ctrlmat_step_contract(n_t, integral, b_t, ph)
+        weights = numeric._spectral_weights(spectrum[0], omega, 3)
+        with mode:
+            numeric._second_order_diag_shifts(eigvals, n_t, b_t, step, omega,
+                                              p.dt, weights)
+        start = 0
+    else:
+        with mode:
+            functional._etm_core(p, spectrum, omega, pulse.basis, True)
+        start = steps[-1][0]
+    step = steps[-1][1]
+    row_segment = step[0, 0].numel()
+    assert step.shape == (2, 4, 3, 9, 23) and row_segment == 3 * 9 * 23
+    after = mode.ops[start:]
+    sized = [name for name, sizes in after
+             if sizes & {step.numel(), row_segment}]
+    cumsums = [name for name, _ in after if 'cumsum' in name]
+    if call == 'etm_cross':
+        assert sized and cumsums and padded
+        return
+    assert after and not sized and not cumsums and not padded
 
 
 @pytest.mark.parametrize('spectrum, n_s', [

@@ -59,7 +59,10 @@ def _inputs(grid):
         return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
     n_b = d * d
     n_t, b_t = cplx(n_nops, G, d, d), cplx(G, n_b, d, d)
-    step, cum = (cplx(G, n_nops, n_b, n_w), cplx(G, n_nops, n_b, n_w))
+    step, _ = (cplx(G, n_nops, n_b, n_w), cplx(G, n_nops, n_b, n_w))
+    # the padded cumulative control matrices of step, which the port's
+    # shifts accumulate themselves
+    cum = np.concatenate([np.zeros_like(step[:1]), step.cumsum(0)[:-1]])
     w = rng.random((n_nops, n_w))
     host = (ev, n_t, b_t, step, cum, omega, dt, w)
     port = tuple(torch.as_tensor(x) for x in host)
@@ -92,8 +95,10 @@ def _jax_factored(monkeypatch, jax_args):
 
 
 def _port(args, **kw):
-    """(shifts, F^(2) total) of the port, from the tables."""
-    return (numeric._second_order_diag_shifts(*args, **kw),
+    """(shifts, F^(2) total) of the port, from the tables; the shifts
+    take the arguments without the padded cumulative control
+    matrices."""
+    return (numeric._second_order_diag_shifts(*args[:4], *args[5:], **kw),
             numeric._second_order_total(*args[:7], **kw))
 
 
@@ -183,7 +188,7 @@ def _batched(grid, n=3):
     per-copy inputs."""
     (ev, n_t, b_t, step, cum, omega, dt, w), _ = _inputs(grid)
     scale = torch.tensor([1.0, 1.1, 0.9][:n], dtype=torch.float64)
-    singles = [(ev * s, n_t, b_t, step * s, cum, omega, dt * s, w)
+    singles = [(ev * s, n_t, b_t, step * s, cum * s, omega, dt * s, w)
                for s in scale]
     batch = tuple(torch.stack([single[i] for single in singles])
                   for i in range(5)) + (omega,) + (
