@@ -257,10 +257,18 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
     matrices in place, one weighted K2 lattice for each distinct row of
     the spectrum, one for all noise operators where one row serves them
     all), so neither the (a, k, l, w) integrand, F^(2) nor a cumulative
-    control matrix exists; other spectra integrate the integrand of the
-    control matrix and of F^(2), whose complete steps take the padded
-    cumulative control matrices.  The second-order
-    terms run over chunks of segments that fit
+    control matrix exists.  Any other spectrum, a cross-spectrum S_ab
+    above all, is read once as real profiles with mixing factors, S_ab
+    = sum_r M^(r)_ab s_r (:func:`.numeric._spectrum_profiles`, which
+    also checks that it is Hermitian; a spectrum tensor keeps them for
+    the next call while it is not written in place): its diagonal takes
+    the same route, and the part off it mixes the correlated noise
+    operators by M^(r) on one side of the decay amplitudes, of the
+    complete steps' running sum and of the incomplete steps, with one
+    weighted lattice per profile; no (a, b, k, l, w) integrand, F^(2) or
+    lattice per pair exists either.  Each row a of the decay amplitudes
+    and shifts then holds the part of its pairs that the cumulant sums.
+    The second-order terms run over chunks of segments that fit
     :func:`.config.memory_budget` (*budget_bytes* overrides it).  The
     trace contraction takes the basis's precombined combos for n <= 64
     and runs through the basis above, as the object path's
@@ -273,20 +281,29 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
     :func:`.numeric._degenerate_control_matrix`, as the infidelity's
     does; with *second_order* the per-step control matrices take its
     per-step variant before they are summed (the first-order control
-    matrix) and accumulated (the complete steps), and the shifts or
-    F^(2) take :func:`.numeric._degenerate_incomplete_steps` (the
-    incomplete steps).  Both are built only where a gradient reaches a
-    degenerate Hamiltonian; the forward values do not change.
+    matrix) and accumulated (the complete steps), and the shifts take
+    :func:`.numeric._degenerate_incomplete_steps` (the incomplete
+    steps, mixed as the forward's).  Both are built only where a
+    gradient reaches a degenerate Hamiltonian; the forward values do not
+    change.
     """
     with tracing.span('ff.etm'):
         n_nops = p.n_opers.shape[0]
-        idx = np.arange(n_nops)
-        s = util.parse_spectrum(spectrum, omega, idx, device=omega.device)
+        s = util._broadcast_spectrum(spectrum, omega, np.arange(n_nops),
+                                     device=omega.device)
+        profiles = None
+        if s.ndim <= 2 and not s.is_complex():
+            weights = numeric._spectral_weights(s, omega, n_nops)
+            # the distinct rows of the weights: one lattice for each
+            rows = weights[:numeric._distinct_rows(s)]
+        else:
+            profiles = numeric._spectrum_profiles(s, omega, n_nops, spectrum)
+            rows = profiles.diagonal
+            weights = rows.expand(n_nops, -1)
         with tracing.span('ff.prep'):
             ham, eigvals, eigvecs, terms = _diagonalized(
                 p, p.c_coeffs, p.n_coeffs, p.dt, omega)
         _, n_t, b_t, ph, integral = terms
-        diagonal = s.ndim <= 2 and not s.is_complex()
         with tracing.span('ff.etm.steps'):
             step = numeric._ctrlmat_step_contract(n_t, integral, b_t, ph)
             degenerate = numeric._degenerate_control_matrix(
@@ -297,42 +314,24 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
             ctrl = step.sum(-4)
             if not second_order and degenerate is not None:
                 ctrl = ctrl + degenerate
-            if diagonal:
-                weights = numeric._spectral_weights(s, omega, n_nops)
-                gamma = numeric._folded_decay_amplitudes(ctrl, weights)
-            else:
-                gamma = numeric._integrate_2pi(numeric._get_integrand(
-                    s, omega, idx, 'total', 'generalized',
-                    control_matrix=ctrl), omega)
+            gamma = numeric._folded_decay_amplitudes(ctrl, weights)
+            if profiles is not None:
+                gamma = numeric._mixed_decay_amplitudes(ctrl, gamma,
+                                                        profiles)
         delta = None
         if second_order:
-            # the distinct rows of the weights: one lattice for each
-            rows = weights[:numeric._distinct_rows(s)] if diagonal else None
             incomplete = numeric._degenerate_incomplete_steps(
                 ham, eigvals, eigvecs, n_t, b_t, omega, p.dt, rows,
-                budget_bytes)
-            if diagonal:
-                shifts = numeric._second_order_diag_shifts(
-                    eigvals, n_t, b_t, step, omega, p.dt, rows,
-                    budget_bytes)
-                if incomplete is not None:
-                    shifts = shifts + incomplete
-                delta = shifts.real
-            else:
-                cumul_padded = numeric._pad_cumulative(
-                    step, step.cumsum(-4)[..., :-1, :, :, :])
-                f2 = numeric._second_order_total(eigvals, n_t, b_t, step,
-                                                 cumul_padded, omega, p.dt,
-                                                 budget_bytes)
-                if incomplete is not None:
-                    f2 = f2 + incomplete
-                delta = numeric._integrate_2pi(numeric._get_integrand(
-                    s, omega, idx, 'total', 'generalized',
-                    filter_function=f2), omega)
+                budget_bytes, profiles)
+            shifts = numeric._second_order_diag_shifts(
+                eigvals, n_t, b_t, step, omega, p.dt, rows, budget_bytes,
+                profiles)
+            if incomplete is not None:
+                shifts = shifts + incomplete
+            delta = shifts.real
         with tracing.span('ff.etm.cumulant'):
             k_fn = numeric._cumulant_contract(gamma, delta, basis)
-            noise_axes = (-4, -3) if s.ndim == 3 else (-3,)
-            return numeric._expm(k_fn.sum(noise_axes))
+            return numeric._expm(k_fn.sum(-3))
 
 
 def error_transfer_matrix(p: PulseArrays, spectrum, omega, basis: Basis,

@@ -19,8 +19,8 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import (Any, Callable, Dict, Mapping, Optional, Sequence,
-                    Tuple, Union)
+from typing import (Any, Callable, Dict, Mapping, NamedTuple, Optional,
+                    Sequence, Tuple, Union)
 from warnings import warn
 
 import numpy as np
@@ -1584,6 +1584,225 @@ def _distinct_rows(spectrum: torch.Tensor) -> int:
     return spectrum.shape[0]
 
 
+#: Distance, per frequency of the grid and relative to a row's 2-norm,
+#: within which a row of a spectrum (the real or the imaginary part of
+#: one entry S_ab) counts as lying in the span of the profiles found
+#: before it (:func:`_row_profiles`): n_w eps, the tolerance of numpy's
+#: ``matrix_rank`` (max(m, n) eps of the largest singular value, at
+#: least 1 for rows of unit norm).  Closer than that, what separates a
+#: row from the span is the rounding of its entries; each row is
+#: reproduced within that distance.
+_PROFILE_EPS = float(np.finfo(np.float64).eps)
+
+
+class _Factors(NamedTuple):
+    r"""What the factorization of a spectrum, S_ab(w) = sum_r M^(r)_ab
+    s_r(w) (:func:`_factor_spectrum`), keeps for the calls that share
+    the spectrum.  On the device: *rows* (r, n_w), the real profiles
+    s_r; *diag_factors* (n_s, r), the M^(r)_aa of the n_s distinct rows
+    of the diagonal (1 where every operator has the same, else n), None
+    where *pick* names the one profile that the diagonal is; *corr*
+    (n_c,), the correlated operators, those with an entry off the
+    diagonal; *mixing* (r_c, n_c, n_c) complex, M^(r) among them with
+    its diagonal zeroed, for the r_c profiles *mixed* that have such an
+    entry.  On the host: *factors* (r, n, n) complex, every M^(r)
+    whole."""
+    rows: torch.Tensor
+    diag_factors: Optional[torch.Tensor]
+    pick: Optional[int]
+    corr: torch.Tensor
+    mixing: torch.Tensor
+    mixed: Tuple[int, ...]
+    factors: np.ndarray
+
+
+class _Profiles(NamedTuple):
+    r"""A spectrum as real frequency profiles with mixing factors on a
+    frequency grid (:func:`_spectrum_profiles`): *weights* (r, n_w),
+    s_r(w) w_trapz(w) / 2 pi; *diagonal* (n_s, n_w), S_aa(w) w_trapz(w)
+    / 2 pi = sum_r M^(r)_aa weights[r]; *mix_weights* (r_c, n_w)
+    complex, the weights of the profiles that mix; and the fields of
+    :class:`_Factors`."""
+    weights: torch.Tensor
+    diagonal: torch.Tensor
+    mix_weights: torch.Tensor
+    rows: torch.Tensor
+    diag_factors: Optional[torch.Tensor]
+    pick: Optional[int]
+    corr: torch.Tensor
+    mixing: torch.Tensor
+    mixed: Tuple[int, ...]
+    factors: np.ndarray
+
+    def diagonal_lattice(self, ell: torch.Tensor) -> torch.Tensor:
+        """The weighted lattices (..., n_s, d^2, d^2) of the diagonal's
+        rows from those of the profiles, *ell* (..., r, d^2, d^2)."""
+        if self.pick is not None:
+            return ell[..., self.pick:self.pick + 1, :, :]
+        return torch.einsum('sr,...rxy->...sxy',
+                            self.diag_factors.to(ell.dtype), ell)
+
+    def mix(self, x: torch.Tensor) -> torch.Tensor:
+        """sum_r mix_weights[r] (mixing[r] @ x) over the correlated
+        operators' axis of *x* (..., n_c, k, n_w): the part of the
+        cross-spectrum off the diagonal, applied to one side."""
+        flat = x.flatten(-2)
+        out = None
+        for m, w in zip(self.mixing, self.mix_weights):
+            term = (m @ flat).unflatten(-1, x.shape[-2:])
+            out = term * w if out is None else torch.addcmul(out, term, w)
+        return out
+
+
+def _row_profiles(rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(profiles (r, n_w), coefficients (m, r)) of distinct nonzero real
+    rows (m, n_w), rows = coefficients @ profiles within
+    :data:`_PROFILE_EPS` n_w of each row's 2-norm: the first profile is
+    the row of largest norm itself (its coefficients exactly (1, 0, ...)),
+    the others are orthogonal to it and to each other, at its norm, found
+    by Gram-Schmidt with pivoting on the rows scaled to unit norm."""
+    norms = np.linalg.norm(rows, axis=1)
+    unit = rows / norms[:, None]
+    tol = rows.shape[1] * _PROFILE_EPS
+    first = int(np.argmax(norms))
+    found = [unit[first]]
+    left = unit - np.outer(unit @ found[0], found[0])
+    while True:
+        left_norms = np.linalg.norm(left, axis=1)
+        k = int(np.argmax(left_norms))
+        if left_norms[k] <= tol:
+            break
+        v = left[k] / left_norms[k]
+        for _ in range(2):          # twice is enough (Kahan, Parlett)
+            basis = np.stack(found)
+            v = v - (basis @ v) @ basis
+            v = v / np.linalg.norm(v)
+        found.append(v)
+        left = left - np.outer(left @ v, v)
+    scale = norms[first]
+    profiles = np.stack([rows[first]] + [v * scale for v in found[1:]])
+    coeffs = rows @ profiles.T / scale ** 2
+    coeffs[first] = np.eye(len(profiles))[0]
+    return profiles, coeffs
+
+
+#: The attribute under which a spectrum tensor keeps its
+#: :class:`_Factors`, with its version counter and the number of noise
+#: operators (:func:`_spectrum_profiles`).
+_FACTORS_ATTR = '_filter_functions_factors'
+
+
+def _spectrum_profiles(spectrum: torch.Tensor, omega: torch.Tensor, n: int,
+                       given=None) -> _Profiles:
+    r"""S_ab(w) = sum_r M^(r)_ab s_r(w) of a parsed spectrum of *n* noise
+    operators that is not real and diagonal, on the grid *omega*
+    (:class:`_Profiles`): the factorization of :func:`_factor_spectrum`,
+    weighted by the trapezoid rule on the device.
+
+    *given* is the spectrum as the caller passed it.  Where that is a
+    tensor, it keeps the factorization (an attribute of the tensor,
+    which lives and dies with it) with its version counter: a later call
+    with the same tensor, not written in place since, reads nothing
+    back; a write that bypasses the counter (through ``.data`` or a
+    numpy view) is not seen.  Anything else is factored on every call.
+    """
+    with tracing.span('ff.spectrum.profiles'):
+        key = found = None
+        if isinstance(given, torch.Tensor) and not given.is_inference():
+            key = (given._version, n, tuple(spectrum.shape))
+            kept, factors = getattr(given, _FACTORS_ATTR, (None, None))
+            if kept == key:
+                found = factors
+        if found is None:
+            found = _factor_spectrum(spectrum, n)
+            if key is not None:
+                setattr(given, _FACTORS_ATTR, (key, found))
+        weights = _spectral_weights(found.rows, omega, len(found.rows))
+        if found.pick is None:
+            diagonal = found.diag_factors @ weights.to(
+                found.diag_factors.dtype)
+        else:
+            diagonal = weights[found.pick:found.pick + 1]
+        return _Profiles(weights, diagonal,
+                         weights[list(found.mixed)].to(config.COMPLEX),
+                         *found)
+
+
+def _factor_spectrum(spectrum: torch.Tensor, n: int) -> _Factors:
+    r"""S_ab(w) = sum_r M^(r)_ab s_r(w) of a parsed spectrum of *n* noise
+    operators that is not real and diagonal: 3-d, Hermitian along its
+    first two axes, or a complex diagonal one (ndim 1 or 2), as real
+    frequency profiles s_r with mixing factors M^(r) (:class:`_Factors`).
+
+    The spectrum is read to the host once (``sync.spectrum``), with the
+    flag of :func:`.util.parse_spectrum`'s check that it is Hermitian,
+    evaluated on the device.  The real and imaginary parts of its
+    entries are rows over the frequencies; equal rows count once, and
+    the profiles are a basis of the rest within
+    :data:`_PROFILE_EPS` (:func:`_row_profiles`): a separable spectrum
+    C_ab s(w), with C complex and Hermitian, gives r = 1 and s(w) the
+    row of its largest entry.  The profiles and factors go to the device
+    at once, before any work of the call is queued, so that no later
+    upload waits for it.  M^(r) is not assumed Hermitian: every entry is
+    reproduced as given."""
+    spectrum = spectrum.detach()
+    n_w = spectrum.shape[-1]
+    # the Hermitian check (torch.allclose's) on the device, its flag read
+    # with the values
+    hermitian = torch.isclose(spectrum, spectrum.conj().transpose(0, 1)
+                              ).all() if spectrum.ndim == 3 \
+        else torch.ones((), dtype=torch.bool, device=spectrum.device)
+    host = torch.cat([spectrum.flatten(),
+                      hermitian.to(spectrum.dtype)[None]]).cpu().numpy()
+    tracing.counts['sync.spectrum'] += 1
+    if not host[-1]:
+        raise ValueError(util.NOT_HERMITIAN)
+    host = host[:-1].reshape(spectrum.shape)
+    if host.ndim < 3:
+        full = np.zeros((n, n, n_w), host.dtype)
+        full[np.arange(n), np.arange(n)] = np.broadcast_to(host, (n, n_w))
+        host = full
+    parts = [host.real] + ([host.imag] if np.iscomplexobj(host) else [])
+    rows = np.concatenate([x.reshape(n * n, n_w) for x in parts])
+    nonzero = np.flatnonzero((rows != 0).any(1))
+    profiles, coeffs = np.zeros((1, n_w)), np.zeros((0, 1))
+    if len(nonzero):
+        unique, inverse = np.unique(rows[nonzero], axis=0,
+                                    return_inverse=True)
+        profiles, coeffs = _row_profiles(unique)
+        coeffs = coeffs[inverse.reshape(-1)]
+    r = len(profiles)
+    factors = np.zeros((len(parts) * n * n, r))
+    factors[nonzero] = coeffs
+    factors = factors.reshape(len(parts), n, n, r).transpose(0, 3, 1, 2)
+    factors = factors[0] + 1j * factors[1] if len(parts) == 2 \
+        else factors[0] + 0j                                  # (r, n, n)
+
+    diag = factors[:, np.arange(n), np.arange(n)].T           # (n, r)
+    if not diag.imag.any():
+        diag = diag.real
+    if (diag == diag[0]).all():
+        diag = diag[:1]
+    unit = np.eye(r)
+    pick = next((j for j in range(r) if len(diag) == 1
+                 and np.array_equal(diag[0], unit[j])), None)
+    off = np.ones((n, n), bool)
+    np.fill_diagonal(off, False)
+    corr = np.flatnonzero(((factors != 0) & off).any(0).any(0)
+                          | ((factors != 0) & off).any(0).any(1))
+    mixing = factors[:, corr[:, None], corr[None, :]] \
+        * off[corr[:, None], corr[None, :]]
+    mixed = tuple(int(j) for j in np.flatnonzero(mixing.any((1, 2))))
+    device = spectrum.device
+    return _Factors(
+        torch.as_tensor(profiles, device=device),
+        None if pick is not None else torch.as_tensor(diag, device=device),
+        pick, torch.as_tensor(corr, device=device),
+        torch.as_tensor(mixing[list(mixed)], dtype=config.COMPLEX,
+                        device=device),
+        mixed, factors)
+
+
 def _by_row(x: torch.Tensor, ell: torch.Tensor) -> torch.Tensor:
     """x @ ell of x (..., n_nops, k, ij) and ell (..., n_s, ij, mn), row s
     of ell serving n_nops / n_s consecutive operators (n_s = 1 or
@@ -1596,13 +1815,16 @@ def _by_row(x: torch.Tensor, ell: torch.Tensor) -> torch.Tensor:
 
 
 def _shifts_chunk(eigvals: torch.Tensor, n_w: int, n_s: int,
-                  budget_bytes: Optional[int] = None) -> int:
+                  budget_bytes: Optional[int] = None, mixed: int = 0) -> int:
     """Segments per chunk of :func:`_second_order_diag_shifts` and of its
     degenerate-eigenspace backward (:func:`_factored_chunk`): beside the
     tables, the weighted right-hand tables of the n_s rows of the
-    weights and the product's workspace."""
+    weights and the product's workspace, and *mixed* complex elements a
+    segment of a cross-spectrum's mixing (of any number of frequencies)."""
     d = eigvals.shape[-1]
-    return _factored_chunk(eigvals, n_w, 8 * n_s * d * d, budget_bytes)
+    return _factored_chunk(eigvals, n_w,
+                           8 * n_s * d * d + math.ceil(mixed / n_w),
+                           budget_bytes)
 
 
 def _folded_decay_amplitudes(control_matrix: torch.Tensor,
@@ -1614,46 +1836,104 @@ def _folded_decay_amplitudes(control_matrix: torch.Tensor,
                         weights.to(config.COMPLEX), control_matrix).real
 
 
-def _complete_step_shifts(ctrlmat_step: torch.Tensor, weights: torch.Tensor
+def _mixed_decay_amplitudes(control_matrix: torch.Tensor,
+                            gamma: torch.Tensor, profiles: _Profiles
+                            ) -> torch.Tensor:
+    """*gamma*, the folded decay amplitudes of a cross-spectrum's
+    diagonal (:func:`_folded_decay_amplitudes`), plus the part off it,
+    sum_{b != a} sum_w w_trapz / 2 pi B*_{ak} S_ab B_{bl}, which goes to
+    the rows of the correlated operators a: their control matrices mixed
+    by :meth:`_Profiles.mix` on one side, one product over w, and no
+    (a, b, k, l, w) integrand.  The sum over the noise operators is that
+    of the integrand's."""
+    if not profiles.mixed:
+        return gamma
+    with tracing.span('ff.so.mix'):
+        b_c = control_matrix.index_select(-3, profiles.corr)
+        off = torch.einsum('...ako,...alo->...akl', b_c.conj(),
+                           profiles.mix(b_c)).real
+        return gamma.index_add(-3, profiles.corr, off)
+
+
+def _complete_step_shifts(ctrlmat_step: torch.Tensor, weights: torch.Tensor,
+                          profiles: Optional[_Profiles] = None
                           ) -> torch.Tensor:
-    r"""The complete-step term of the frequency shifts of a real diagonal
-    spectrum, sum_g conj(B_g W C_g^H) with C_g = sum_{g' < g} B_{g'} and
+    r"""The complete-step term of the frequency shifts of a diagonal
+    spectrum, sum_g conj(B_g) W C_g^T with C_g = sum_{g' < g} B_{g'} and
     W = diag(*weights*), as a running sum over the segments.
 
-    W is real, so B_g W C_g^H = B_g (W C_g)^H: one running buffer
-    Cw = sum_{g' < g} w B_{g'} (..., n_nops, n_b, n_w) serves every
-    segment, and per leading index and segment one batched product
-    conj(B_g) @ Cw^T accumulates.  Cw takes B_step's layout, so its
-    update is one aligned elementwise pass, and both operands of the
+    One running buffer Cw = sum_{g' < g} w B_{g'} (..., n_nops, n_b, n_w)
+    serves every segment, and per leading index and segment one batched
+    product conj(B_g) @ Cw^T accumulates.  Cw takes B_step's layout, so
+    its update is one aligned elementwise pass, and both operands of the
     product are views with the frequency axis strided, which cuBLAS
     reads transposed, the conjugate as its op: no cumulative, weighted
-    or copied tensor of B_step's size is made.  Out-of-place, so
-    autograd runs through it.
+    or copied tensor of B_step's size is made.  With *profiles* of a
+    cross-spectrum (*weights* its diagonal) the part off the diagonal,
+    sum_{b != a} S_ab B_{g', b}, joins the rows of the correlated
+    operators a of each update (:meth:`_Profiles.mix`); the sum over the
+    noise operators is that of F^(2)'s (a, b) pairs.  Out-of-place up to
+    that fresh update, so autograd runs through it.
 
-    ctrlmat_step (..., G, n_nops, n_b, n_w); *weights* (n_s, n_w) real,
-    n_s = 1 or n_nops.  Returns (..., n_nops, n_b, n_b) complex.
+    ctrlmat_step (..., G, n_nops, n_b, n_w); *weights* (n_s, n_w) real
+    or complex, n_s = 1 or n_nops.  Returns (..., n_nops, n_b, n_b)
+    complex.
     """
     lead = ctrlmat_step.shape[:-4]
     n_nops, n_basis = ctrlmat_step.shape[-3:-1]
+    mixed = profiles is not None and bool(profiles.mixed)
     # complex, so that the update runs without a cast: exact, w + 0j
     w = weights.to(ctrlmat_step.dtype)[:, None, :]
     cw = torch.zeros_like(ctrlmat_step[..., 0, :, :, :])
     rows = list(np.ndindex(*lead))
     acc = [ctrlmat_step.new_zeros(n_nops, n_basis, n_basis) for _ in rows]
     for g in range(1, ctrlmat_step.shape[-4]):
-        cw = torch.addcmul(cw, ctrlmat_step[..., g - 1, :, :, :], w)
+        prev = ctrlmat_step[..., g - 1, :, :, :]
+        cw = torch.addcmul(cw, prev, w)
+        if mixed:
+            with tracing.span('ff.so.mix'):
+                cw.index_add_(-3, profiles.corr, profiles.mix(
+                    prev.index_select(-3, profiles.corr)))
         for i, row in enumerate(rows):
             acc[i] = torch.baddbmm(acc[i], ctrlmat_step[row + (g,)].conj(),
                                    cw[row].mT)
     return torch.stack(acc).reshape(*lead, n_nops, n_basis, n_basis)
 
 
+def _mixed_rows(nob: torch.Tensor, ell: torch.Tensor, x: torch.Tensor,
+                profiles: _Profiles) -> torch.Tensor:
+    r"""sum_r (M^(r) off the diagonal)^T X_r over the correlated
+    operators, X_r[a] = nob[a] @ ell[r]: what the correlations add to
+    the left factor x[b] = nob[b] @ ell_diag[b] of row b of the
+    incomplete steps, so that x @ nob^T sums sum_ab M_ab nob[a] ell
+    nob[b]^T.  *nob* (..., g, n_nops, n_b, d^2), *ell* the profiles'
+    lattices (..., g, r, d^2, d^2), *x* (..., g, n_nops, n_b, d^2) the
+    diagonal's product, whose rows serve where the diagonal is the
+    profile itself.  Returns (..., g, n_c, n_b, d^2)."""
+    corr = profiles.corr
+    nob_c = None
+    out = None
+    for m, r in zip(profiles.mixing, profiles.mixed):
+        if r == profiles.pick:
+            x_r = x.index_select(-3, corr)
+        else:
+            if nob_c is None:
+                nob_c = nob.index_select(-3, corr)
+            x_r = _by_row(nob_c, ell[..., r:r + 1, :, :])
+        term = (m.mT @ x_r.flatten(-2)).unflatten(-1, x_r.shape[-2:])
+        out = term if out is None else out + term
+    return out
+
+
 def _second_order_diag_shifts(eigvals, n_opers_transformed,
                               basis_transformed, ctrlmat_step, omega, dt,
-                              weights, budget_bytes: Optional[int] = None
+                              weights, budget_bytes: Optional[int] = None,
+                              profiles: Optional[_Profiles] = None
                               ) -> torch.Tensor:
-    r"""Frequency shifts Delta[a, k, l] for diagonal spectra without the
-    (a, b, k, l, w) second-order filter function.
+    r"""Frequency shifts Delta[a, k, l] without the (a, b, k, l, w)
+    second-order filter function: of a diagonal spectrum, and with
+    *profiles* (:func:`_spectrum_profiles`) of a cross-spectrum, whose
+    (a, b) pairs' sum it returns per row a.
 
     A diagonal spectrum reads only the a == b diagonal of F^(2).  The
     complete steps accumulate segment by segment on one running
@@ -1668,132 +1948,130 @@ def _second_order_diag_shifts(eigvals, n_opers_transformed,
     :func:`.config.memory_budget` (*budget_bytes* overrides it) with the
     tables of n_s rows.
 
+    A cross-spectrum S_ab = sum_r M^(r)_ab s_r builds one weighted
+    lattice per profile s_r instead, the diagonal's from them
+    (:meth:`_Profiles.diagonal_lattice`; *weights* is the diagonal's,
+    for the complete steps), and mixes the noise operators by M^(r) on
+    one side, in span ``ff.so.mix``: the complete steps' running sum
+    (:func:`_complete_step_shifts`) and the incomplete steps' left
+    factor (:func:`_mixed_rows`).  Neither a lattice per pair nor a
+    product per pair is made.
+
     eigvals (..., G, d), n_opers_transformed (..., n_nops, G, d, d),
     basis_transformed (..., G, n_b, d, d), ctrlmat_step (..., G, n_nops,
-    n_b, n_w), dt (..., G); *weights* (n_s, n_w) real, S(w) w_trapz /
-    2 pi, with n_s = 1 (one spectrum for every noise operator: one
-    lattice serves them all) or n_nops.  Returns complex (..., n_nops,
-    n_b, n_b); its real part is the physical shift.
+    n_b, n_w), dt (..., G); *weights* (n_s, n_w), S(w) w_trapz / 2 pi,
+    with n_s = 1 (one spectrum for every noise operator: one lattice
+    serves them all) or n_nops.  Returns complex (..., n_nops, n_b,
+    n_b); its real part is the physical shift.
     """
     with tracing.span('ff.so.shifts'):
         G, n_w = eigvals.shape[-2], omega.shape[-1]
-        n_s = weights.shape[0]
-        shifts = _complete_step_shifts(ctrlmat_step, weights)
+        shifts = _complete_step_shifts(ctrlmat_step, weights, profiles)
+        rows, mixed = weights, 0
+        if profiles is not None:
+            rows = profiles.weights
+            n_basis = basis_transformed.shape[-3]
+            mixed = 3 * len(profiles.mixed) * len(profiles.corr) * n_basis \
+                * eigvals.shape[-1] ** 2
 
         nob = _noise_basis_products(n_opers_transformed, basis_transformed)
-        chunk = _shifts_chunk(eigvals, n_w, n_s, budget_bytes)
+        chunk = _shifts_chunk(eigvals, n_w, rows.shape[0], budget_bytes,
+                              mixed)
         for start in range(0, G, chunk):
             sl = slice(start, start + chunk)
             ell = _factored_weighted_lattice(omega, eigvals[..., sl, :],
-                                             dt[..., sl], weights)
+                                             dt[..., sl], rows)
             # (g, a, k, ij), copied once for both products
             nob_c = nob[..., sl, :, :, :].contiguous()
-            shifts = shifts + (_by_row(nob_c, ell) @ nob_c.mT).sum(-4)
+            shifts = shifts + _sandwich(nob_c, ell, profiles)
         return shifts
+
+
+def _sandwich(nob: torch.Tensor, ell: torch.Tensor,
+              profiles: Optional[_Profiles]) -> torch.Tensor:
+    """sum_g x @ nob^T of a chunk of segments, the left factor x = nob
+    ell of :func:`_by_row` (with *profiles*, ell the diagonal's from the
+    profiles' and the correlated rows mixed by :func:`_mixed_rows`): the
+    incomplete steps of :func:`_second_order_diag_shifts`.  *nob* (...,
+    g, n_nops, n_b, d^2), *ell* (..., g, n_s or r, d^2, d^2).  x lives
+    only here."""
+    if profiles is None:
+        return (_by_row(nob, ell) @ nob.mT).sum(-4)
+    x = _by_row(nob, profiles.diagonal_lattice(ell))
+    if profiles.mixed:
+        with tracing.span('ff.so.mix'):
+            x.index_add_(-3, profiles.corr, _mixed_rows(nob, ell, x, profiles))
+    return (x @ nob.mT).sum(-4)
 
 
 class _DegenerateIncompleteSteps(torch.autograd.Function):
     r"""Zero in value; its backward is the part of the derivative of the
-    incomplete-step term of the second order that :class:`_Eigh` drops.
-    Each segment contributes
+    incomplete-step term of the frequency shifts that :class:`_Eigh`
+    drops.  Each segment contributes to row b
 
-        sum_{ij, mn} nob_A[ij] I[o, ij, mn] nob_B[mn],
-        nob_(a k)[ij] = Bbar_a[ij] Cbar_k[ji],
+        sum_r sum_a M^(r)_ab sum_{ij, mn} nob_A[ij] I_r[ij, mn] nob_B[mn],
+        nob_(a k)[ij] = Bbar_a[ij] Cbar_k[ji],  B = (b l),
 
-    whose derivative along the off-diagonal entries D_pq of a
-    degenerate eigenspace puts [D, Bbar_a] in place of Bbar_a in either
-    factor, with the slope of I in that factor's eigenvalue difference
-    (:func:`_factored_slope_stacks`).  The cotangent meets the slopes
-    over the same chunks of segments as the forward, from the separable
-    tables: the (n_w, d^4) lattice is never built.
+    with I_r the K2 lattice weighted by profile r of the spectrum and
+    M^(r) its mixing factors (a diagonal spectrum: one profile a
+    distinct row, M diagonal), whose derivative along the off-diagonal
+    entries D_pq of a degenerate eigenspace puts [D, Bbar_a] in place of
+    Bbar_a in either factor, with the slope of I in that factor's
+    eigenvalue difference (:func:`_factored_slope_stacks`).  The
+    cotangent meets the slopes over the same chunks of segments as the
+    forward, from the separable tables: the (n_w, d^4) lattice is never
+    built.
 
     forward(h (..., G, d, d), w, v, n_opers_transformed, basis_transformed,
-    omega, dt, weights, budget_bytes), all but h detached.  With
-    *weights* (n_s, n_w) the term of the diagonal shifts
-    (:func:`_second_order_diag_shifts`): zeros (..., n_nops, n_b, n_b)
-    complex; without, of F^(2) (:func:`_second_order_total`): zeros
-    (..., n_nops, n_nops, n_b, n_b, n_w).
+    omega, dt, weights, factors, budget_bytes), all but h detached:
+    *weights* (n_s, n_w) the lattices' rows; *factors* None (a diagonal
+    spectrum, row s serving n_nops / n_s operators, :func:`_by_row`) or
+    (n_s, n_nops, n_nops) complex, the mixing factors of the profiles of
+    a cross-spectrum (:class:`_Profiles`).  Returns zeros (..., n_nops,
+    n_b, n_b) complex, the shape of the shifts.
     """
 
     @staticmethod
-    def forward(ctx, h, w, v, n_t, b_t, omega, dt, weights, budget_bytes):
-        ctx.save_for_backward(w, v, n_t, b_t, omega, dt, weights)
+    def forward(ctx, h, w, v, n_t, b_t, omega, dt, weights, factors,
+                budget_bytes):
+        ctx.save_for_backward(w, v, n_t, b_t, omega, dt, weights, factors)
         ctx.budget_bytes = budget_bytes
         n_nops, n_basis = n_t.shape[-4], b_t.shape[-3]
-        lead = n_t.shape[:-4]
-        if weights is not None:
-            return h.new_zeros(*lead, n_nops, n_basis, n_basis)
-        return h.new_zeros(*lead, n_nops, n_nops, n_basis, n_basis,
-                           omega.shape[-1])
+        return h.new_zeros(*n_t.shape[:-4], n_nops, n_basis, n_basis)
 
     @staticmethod
     def backward(ctx, g):
-        w, v, n_t, b_t, omega, dt, weights = ctx.saved_tensors
+        w, v, n_t, b_t, omega, dt, weights, factors = ctx.saved_tensors
         G, d = w.shape[-2:]
-        n_nops, n_basis = n_t.shape[-4], b_t.shape[-3]
-        n_w = omega.shape[-1]
-        A = n_nops * n_basis
-        lead = w.shape[:-2]
-        if weights is not None:
-            chunk = _shifts_chunk(w, n_w, weights.shape[0],
-                                  ctx.budget_bytes)
-            cg = g.conj()[..., None, :, :, :]             # (1, a, k, l)
-        else:
-            # per segment the four (n_w, A, d^2) products of the cotangent
-            # and the stacked tables' products; per step the cotangent's
-            # o-major copy
-            chunk = _factored_chunk(w, n_w, (4 * d * d + 4 * (2 + _SO_SMALL_K))
-                                    * A, ctx.budget_bytes,
-                                    fixed=n_w * A * A)
-            cg = _perm_tail(g.conj(), 4, 0, 2, 1, 3).reshape(
-                *lead, 1, n_w, A, A)                      # (o, A, B)
+        n_w, n_s = omega.shape[-1], weights.shape[0]
+        mixed = 0 if factors is None else \
+            2 * n_s * n_t.shape[-4] * b_t.shape[-3] * d * d
+        chunk = _shifts_chunk(w, n_w, n_s, ctx.budget_bytes, mixed)
+        cg = g.conj()[..., None, :, :, :]                 # (1, a, k, l)
         grads = []
         for start in range(0, G, chunk):
             sl = slice(start, start + chunk)
             w_c, v_c, n_c, b_c = (w[..., sl, :], v[..., sl, :, :],
                                   n_t[..., sl, :, :], b_t[..., sl, :, :, :])
             nob = _noise_basis_products(n_c, b_c)         # (g, a, k, ij)
-            slots = _factored_slope_stacks(omega, w_c, dt[..., sl])
-            if weights is not None:
-                dell1, dell2 = (_weighted_lattice(*slot, weights)
-                                for slot in slots)
+            dell1, dell2 = (_weighted_lattice(*slot, weights) for slot in
+                            _factored_slope_stacks(omega, w_c, dt[..., sl]))
+            if factors is None:
                 w_mat = (_by_row(cg @ nob, dell1.mT)
                          + cg.mT @ _by_row(nob, dell2))
             else:
-                w_mat = _cross_slope_coeff(cg, nob.flatten(-3, -2),
-                                           *slots).unflatten(
-                    -2, (n_nops, n_basis))
+                # row b holds sum_a M^(r)_ab nob[a] I_r nob[b]^T: the
+                # left factors' coefficients mixed back by M^(r), the
+                # right factor's against the mixed left factors
+                z = (cg @ nob)[..., None, :, :, :] \
+                    @ dell1.mT[..., :, None, :, :]
+                y = torch.einsum('rab,...gakx->...grbkx', factors, nob)
+                w_mat = torch.einsum('rab,...grbkx->...gakx', factors, z) \
+                    + (cg.mT[..., None, :, :, :]
+                       @ (y @ dell2[..., :, None, :, :])).sum(-4)
             grads.append(_degenerate_grad(_incomplete_coeff(w_mat, n_c, b_c),
                                           w_c, v_c))
-        return (torch.cat(grads, -3),) + (None,) * 8
-
-
-def _cross_slope_coeff(cg, nob, slot1, slot2) -> torch.Tensor:
-    r"""W[g, A, pq] of :func:`_incomplete_coeff` on F^(2)'s route: with
-    the cotangent cg[o, A, B] (conjugated) and N = *nob* (..., g, A, d^2),
-    M = cg N (the right factor) and M' = cg^T N (the left factor),
-
-        W[A, ij] += sum_{o, mn} dI_1[o, ij, mn] M[o, A, mn],
-        W[B, mn] += sum_{o, ij} M'[o, B, ij] dI_2[o, ij, mn],
-
-    each reduced through the separable tables of the slot."""
-    nob = nob[..., None, :, :]
-    m_right, m_left = cg @ nob, cg.mT @ nob               # (g, o, A, d^2)
-
-    left, right, zterms = slot1
-    rm = _mm_real(m_right, right.movedim(-3, -1))         # (g, o, A, t)
-    out = rm.movedim(-1, -3).flatten(-3, -2).mT @ left.flatten(-3, -2)
-    for zt, rho in zterms:
-        out = out + (m_right * rho[..., :, None, :]).sum(-3) @ zt.mT
-
-    left, right, zterms = slot2
-    ml = m_left @ left.movedim(-3, -1)                    # (g, o, B, t)
-    out = out + _mm_real(ml.movedim(-1, -3).flatten(-3, -2).mT,
-                         right.flatten(-3, -2))
-    for zt, rho in zterms:
-        out = out + ((m_left @ zt[..., None, :, :])
-                     * rho[..., :, None, :]).sum(-3)
-    return out
+        return (torch.cat(grads, -3),) + (None,) * 9
 
 
 def _incomplete_coeff(w_mat, n_t, b_t) -> torch.Tensor:
@@ -1810,18 +2088,26 @@ def _incomplete_coeff(w_mat, n_t, b_t) -> torch.Tensor:
 
 def _degenerate_incomplete_steps(h, eigvals, eigvecs, n_opers_transformed,
                                  basis_transformed, omega, dt,
-                                 weights: Optional[torch.Tensor] = None,
-                                 budget_bytes: Optional[int] = None):
-    """The :class:`_DegenerateIncompleteSteps` term of the diagonal
-    shifts (*weights* given) or of F^(2) of Hamiltonians *h* with
-    eigendecomposition (eigvals, eigvecs), to be added to them; None
-    where no gradient reaches *h* or no eigenspace is degenerate."""
+                                 weights: torch.Tensor,
+                                 budget_bytes: Optional[int] = None,
+                                 profiles: Optional[_Profiles] = None):
+    """The :class:`_DegenerateIncompleteSteps` term of the frequency
+    shifts (:func:`_second_order_diag_shifts`) of Hamiltonians *h* with
+    eigendecomposition (eigvals, eigvecs), to be added to them: of a
+    diagonal spectrum with the distinct rows *weights*, or of the
+    cross-spectrum *profiles*.  None where no gradient reaches *h* or no
+    eigenspace is degenerate."""
     if not _reaches_degenerate(h, eigvals):
         return None
+    factors = None
+    if profiles is not None:
+        weights = profiles.weights
+        factors = torch.as_tensor(profiles.factors, dtype=config.COMPLEX,
+                                  device=weights.device)
     return _DegenerateIncompleteSteps.apply(
         h, eigvals.detach(), eigvecs.detach(), n_opers_transformed.detach(),
         basis_transformed.detach(), omega.detach(), dt.detach(),
-        None if weights is None else weights.detach(), budget_bytes)
+        weights.detach(), factors, budget_bytes)
 
 
 # -----------------------------------------------------------------------------

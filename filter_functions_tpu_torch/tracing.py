@@ -8,42 +8,55 @@ device operation belongs to the span whose host interval launched it,
 and a device gap to the span the host was in.  A span's parent is the
 span it nests in on the host thread.
 
-=====================  ==================================================
-Span                   Where
-=====================  ==================================================
-``ff.prep``            :func:`.functional._prep`: the Hamiltonians, the
-                       eigendecomposition, the propagators, the step terms
-                       and the degenerate-eigenspace term with its check;
-                       inside ``ff.etm``, the same without that term
-                       (:func:`.functional._diagonalized`)
-``ff.etm``             :func:`.functional._etm_core`: the whole error
-                       transfer matrix
-``ff.etm.steps``       in ``ff.etm``: the per-step control matrices
-                       (:func:`.numeric._ctrlmat_step_contract`), their
-                       degenerate-eigenspace term, their sum and the
-                       decay amplitudes
-``ff.so.shifts``       :func:`.numeric._second_order_diag_shifts`: the
-                       frequency shifts of a diagonal spectrum, the
-                       complete steps accumulated segment by segment on
-                       a running weighted sum (no cumulative control
-                       matrix is built) and the chunks of the
-                       separable K2 tables, whose weighted lattice is
-                       built once per distinct spectrum row (once for
-                       all noise operators where they share one row)
-``ff.so.total``        :func:`.numeric._second_order_total`: F^(2) of a
-                       cross-spectrum, the same two parts
-``ff.etm.cumulant``    in ``ff.etm``: the cumulant function
-                       (:func:`.numeric._cumulant_contract`) and its
-                       exponential (:func:`.numeric._expm`)
-``ff.contract``        :func:`.functional._infid_contract`: the
-                       control-matrix contraction (the Ozaki route with
-                       ``dword_digits``, the quantization ratio) and the
-                       frequency integral
-``ff.ozaki.products``  :func:`.ops.ozaki._outer_contract`: the three Gauss
-                       products' int8 slice GEMMs and their double-single
-                       recombination (on CUDA one launch of the kernel of
-                       :mod:`.ops.products`, on the CPU the composite)
-=====================  ==================================================
+==========================  ==================================================
+Span                        Where
+==========================  ==================================================
+``ff.prep``                 :func:`.functional._prep`: the Hamiltonians, the
+                            eigendecomposition, the propagators, the step terms
+                            and the degenerate-eigenspace term with its check;
+                            inside ``ff.etm``, the same without that term
+                            (:func:`.functional._diagonalized`)
+``ff.etm``                  :func:`.functional._etm_core`: the whole error
+                            transfer matrix
+``ff.spectrum.profiles``    in ``ff.etm``, for a spectrum that is not real
+                            and diagonal (:func:`.numeric._spectrum_profiles`):
+                            its weighted real profiles and mixing factors,
+                            and where the spectrum tensor keeps none yet
+                            its one read to the host, Hermitian check and
+                            factorization, uploaded
+``ff.etm.steps``            in ``ff.etm``: the per-step control matrices
+                            (:func:`.numeric._ctrlmat_step_contract`), their
+                            degenerate-eigenspace term, their sum and the
+                            decay amplitudes
+``ff.so.shifts``            :func:`.numeric._second_order_diag_shifts`: the
+                            frequency shifts, the complete steps accumulated
+                            segment by segment on a running weighted sum (no
+                            cumulative control matrix is built) and the
+                            chunks of the separable K2 tables, whose weighted
+                            lattice is built once per distinct spectrum row
+                            (once for all noise operators where they share
+                            one row), or of a cross-spectrum once per profile
+``ff.so.mix``               in ``ff.etm.steps`` (the decay amplitudes,
+                            :func:`.numeric._mixed_decay_amplitudes`) and in
+                            ``ff.so.shifts`` (each update of the running sum,
+                            each chunk's incomplete steps): the correlated
+                            noise operators mixed by a cross-spectrum's
+                            factors off its diagonal
+``ff.so.total``             :func:`.numeric._second_order_total`: F^(2) of
+                            the object path's second-order filter function,
+                            the same two parts
+``ff.etm.cumulant``         in ``ff.etm``: the cumulant function
+                            (:func:`.numeric._cumulant_contract`) and its
+                            exponential (:func:`.numeric._expm`)
+``ff.contract``             :func:`.functional._infid_contract`: the
+                            control-matrix contraction (the Ozaki route with
+                            ``dword_digits``, the quantization ratio) and the
+                            frequency integral
+``ff.ozaki.products``       :func:`.ops.ozaki._outer_contract`: the three Gauss
+                            products' int8 slice GEMMs and their double-single
+                            recombination (on CUDA one launch of the kernel of
+                            :mod:`.ops.products`, on the CPU the composite)
+==========================  ==================================================
 
 The backward has no span of its own: autograd opens
 ``autograd::engine::evaluate_function: <Node>`` around every node
@@ -65,6 +78,11 @@ Counter                    Incremented by
 ``sync.degenerate``        :func:`.numeric._reaches_degenerate` reading
                            whether an eigenspace is degenerate
 ``sync.expm``              :func:`.numeric._expm` reading the norm
+``sync.spectrum``          :func:`.numeric._factor_spectrum` reading a
+                           spectrum that is not real and diagonal (once
+                           per spectrum tensor not written since), and
+                           :func:`.util.parse_spectrum` checking that a
+                           3-d spectrum is Hermitian
 ``escalation.decisions``   each decision of :func:`.numeric._escalates`
 ``escalation.escalated``   each decision that recomputes at full
                            precision

@@ -20,7 +20,7 @@ from typing import (Callable, Iterable, List, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 
-from . import config
+from . import config, tracing
 
 __all__ = ['paulis', 'abs2', 'all_array_equal', 'dot_HS',
            'get_sample_frequencies', 'hash_array_along_axis', 'mdot', 'adot',
@@ -134,6 +134,10 @@ def parse_operators(opers: Sequence, err_loc: str) -> np.ndarray:
     return arr
 
 
+#: The error of a cross-spectrum that is not Hermitian.
+NOT_HERMITIAN = 'Cross-spectra given but not Hermitian along first two axes'
+
+
 def parse_spectrum(spectrum, omega, idx,
                    device: Optional[torch.device] = None) -> torch.Tensor:
     """Validate and broadcast a power spectral density against
@@ -142,8 +146,24 @@ def parse_spectrum(spectrum, omega, idx,
     A tensor stays on its device and is checked there, shapes without a
     host round trip; anything else becomes a tensor on *device*
     (float64, or complex128 for complex input).  A 3-d spectrum must be
-    Hermitian along its first two axes.
+    Hermitian along its first two axes: checking that reads the device
+    once (``sync.spectrum``).
     """
+    spectrum = _broadcast_spectrum(spectrum, omega, idx, device)
+    if spectrum.ndim == 3:
+        hermitian = torch.allclose(spectrum, spectrum.conj().transpose(0, 1))
+        tracing.counts['sync.spectrum'] += 1
+        if not hermitian:
+            raise ValueError(NOT_HERMITIAN)
+    return spectrum
+
+
+def _broadcast_spectrum(spectrum, omega, idx,
+                        device: Optional[torch.device] = None
+                        ) -> torch.Tensor:
+    """:func:`parse_spectrum` without the Hermitian check of a 3-d
+    spectrum, for a caller that checks it on a host copy it reads
+    anyway."""
     if not isinstance(spectrum, torch.Tensor):
         spectrum = np.asarray(spectrum)
         spectrum = torch.as_tensor(
@@ -158,11 +178,7 @@ def parse_spectrum(spectrum, omega, idx,
     except RuntimeError as err:
         raise ValueError(f'Spectrum should be of shape {shape}, not '
                          f'{tuple(spectrum.shape)}.') from err
-    if spectrum.ndim == 3:
-        if not torch.allclose(spectrum, spectrum.conj().transpose(0, 1)):
-            raise ValueError('Cross-spectra given but not Hermitian along '
-                             'first two axes')
-    elif spectrum.ndim > 3:
+    if spectrum.ndim > 3:
         raise ValueError('Expected spectrum to have < 4 dimensions, not '
                          f'{spectrum.ndim}')
     return spectrum

@@ -477,3 +477,207 @@ def test_second_order_etm_gradient_one_row_equals_equal_rows(make, entry,
                                atol=1e-13)
     np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(), rtol=0,
                                atol=1e-13 * grads[1].abs().max().item())
+
+
+# -----------------------------------------------------------------------------
+# Cross-spectra as real profiles with mixing factors
+# -----------------------------------------------------------------------------
+def _cross_spectrum(kind, omega):
+    """A Hermitian cross-spectrum of three noise operators, (3, 3, n_w),
+    and the number of real profiles it has: 'separable', C_ab 1e-3 /
+    omega with C real, symmetric and positive definite (r = 1);
+    'two_profiles', that plus a Lorentzian shared by two operators (r =
+    2); 'complex', C complex and Hermitian on the 1/f profile plus a
+    complex Hermitian Lorentzian part (r = 2: the real and imaginary
+    parts of each entry lie on the two profiles)."""
+    one_f = 1e-3 / omega
+    lorentz = 1e-3 * 400 / (omega ** 2 + 400)
+    c = np.array([[1.0, 0.5, 0.25], [0.5, 1.0, 0.5], [0.25, 0.5, 1.0]])
+    if kind == 'separable':
+        return c[:, :, None] * one_f, 1
+    d = np.array([[0.0, 0.0, 0.0], [0.0, 2.0, 0.7], [0.0, 0.7, 1.5]])
+    if kind == 'two_profiles':
+        return c[:, :, None] * one_f + d[:, :, None] * lorentz, 2
+    h = c + 1j * np.array([[0, 0.3, -0.2], [-0.3, 0, 0.1], [0.2, -0.1, 0]])
+    e = d + 1j * np.array([[0, 0, 0], [0, 0, 0.4], [0, -0.4, 0]])
+    return h[:, :, None] * one_f + e[:, :, None] * lorentz, 2
+
+
+CROSS_KINDS = ['separable', 'two_profiles', 'complex']
+
+
+def _cross_pair(seed):
+    """(JAX pulse, port pulse) of d = 4 with 3 noise operators and 4
+    segments (the 16-element GGM basis)."""
+    arrays = rand_pulse_arrays(4, 4, 3, 3,
+                               local_rng=np.random.default_rng(seed))
+    return make_pulse(arrays), make_pulse(arrays, cls=fft_cpu)
+
+
+@pytest.mark.parametrize('kind', CROSS_KINDS)
+def test_cross_route_matches_f2_and_jax(kind, monkeypatch):
+    """The functional ETM of a cross-spectrum (profiles and mixing,
+    ``numeric._spectrum_profiles``) against the port's F^(2) route (the
+    object path: the (a, b, k, l, w) integrand and F^(2)) and against
+    the JAX package's functional error_transfer_matrix, first and second
+    order, within 1e-13, with one weighted lattice per profile."""
+    jp, p = _cross_pair(70 + CROSS_KINDS.index(kind))
+    omega = np.geomspace(0.1, 10, 24)
+    spectrum, n_profiles = _cross_spectrum(kind, omega)
+    jarr, arr = _arrays(jp)
+    prof = numeric._spectrum_profiles(torch.as_tensor(spectrum),
+                                      torch.as_tensor(omega), 3)
+    assert prof.weights.shape == (n_profiles, len(omega))
+    assert prof.corr.tolist() == [0, 1, 2]
+    built = record_lattice_rows(monkeypatch)
+    for second in (False, True):
+        built.clear()
+        got = functional.error_transfer_matrix(arr, spectrum, omega, p.basis,
+                                               second_order=second)
+        assert set(built) == ({n_profiles} if second else set())
+        obj = fft.error_transfer_matrix(p, spectrum, omega,
+                                        second_order=second)
+        np.testing.assert_allclose(got.numpy(), obj.numpy(), rtol=0,
+                                   atol=1e-13)
+        want = np.asarray(jfunctional.error_transfer_matrix(
+            jarr, spectrum, omega, jp.basis, second_order=second))
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-13)
+
+
+def _random_spectrum(rng, n, n_w, rank, complex_):
+    """A Hermitian (n, n, n_w) spectrum sum_r M_r s_r(w) with *rank*
+    random positive profiles and random Hermitian factors."""
+    s = rng.random((rank, n_w)) / np.linspace(0.1, 10, n_w)
+    m = rng.standard_normal((rank, n, n))
+    if complex_:
+        m = m + 1j * rng.standard_normal((rank, n, n))
+    m = (m + m.conj().transpose(0, 2, 1)) / 2
+    return np.einsum('rab,ro->abo', m, s)
+
+
+@pytest.mark.parametrize('kind', CROSS_KINDS + ['random_real',
+                                                 'random_complex',
+                                                 'diagonal_complex'])
+def test_profiles_reproduce_the_spectrum(kind):
+    """sum_r M^(r)_ab weights_r equals S_ab w_trapz / 2 pi within the
+    stated tolerance, n_w eps of each row's 2-norm (a row: the real or
+    imaginary part of one entry over the frequencies), and the diagonal
+    weights are S_aa w_trapz / 2 pi likewise; random spectra of rank 3
+    give three profiles, and a complex diagonal (2-d) spectrum, one
+    profile, is read as its embedding.  The separable spectrum's one
+    profile is its largest row itself, the diagonal's factors exactly 1
+    (``pick``)."""
+    rng = np.random.default_rng(71)
+    n_w = 40
+    omega = np.geomspace(0.1, 10, n_w)
+    rank = 3
+    if kind in CROSS_KINDS:
+        spectrum, rank = _cross_spectrum(kind, omega)
+    elif kind == 'diagonal_complex':
+        spectrum = (1 + 0.5j) * np.outer([1.0, 2.0, 3.0], 1e-3 / omega)
+        rank = 1
+    else:
+        spectrum = _random_spectrum(rng, 4, n_w, 3, kind == 'random_complex')
+    n = spectrum.shape[0]
+    prof = numeric._spectrum_profiles(torch.as_tensor(spectrum),
+                                      torch.as_tensor(omega), n)
+    weights = prof.weights.numpy()
+    assert weights.shape == (rank, n_w)
+    full = spectrum if spectrum.ndim == 3 else np.einsum(
+        'ab,bo->abo', np.eye(n), spectrum)
+    want = full * numeric.trapezoid_weights(torch.as_tensor(omega)).numpy() \
+        / (2 * np.pi)
+    got = np.einsum('rab,ro->abo', prof.factors, weights)
+    tol = n_w * np.finfo(float).eps
+    for part in (np.real, np.imag):
+        norms = np.linalg.norm(part(want), axis=-1, keepdims=True)
+        assert (np.abs(part(got) - part(want)) <= tol * norms).all()
+    diag = np.einsum('aao->ao', want)
+    got_diag = prof.diagonal.numpy()
+    assert got_diag.shape[0] in (1, n)
+    np.testing.assert_allclose(np.broadcast_to(got_diag, diag.shape), diag,
+                               rtol=0, atol=tol * np.abs(diag).max())
+    if kind == 'separable':
+        assert prof.pick == 0 and prof.diag_factors is None
+        assert torch.equal(prof.weights[0], torch.as_tensor(want[0, 0]))
+
+
+def test_profiles_check_that_the_spectrum_is_hermitian():
+    """A cross-spectrum that is not Hermitian raises as
+    util.parse_spectrum does, from the one read of the profiles."""
+    omega = np.geomspace(0.1, 10, 8)
+    spectrum, _ = _cross_spectrum('separable', omega)
+    spectrum[0, 1] *= 2
+    with pytest.raises(ValueError, match='not Hermitian'):
+        numeric._spectrum_profiles(torch.as_tensor(spectrum),
+                                   torch.as_tensor(omega), 3)
+
+
+@pytest.mark.parametrize('rows', ['shared', 'per_operator'])
+def test_diagonal_cross_spectrum_equals_the_diagonal_route(rows):
+    """A 3-d spectrum whose entries off the diagonal are zero takes the
+    profile route (no operator correlated) and gives the diagonal
+    route's ETM, first and second order, within 1e-14."""
+    _, p = _cross_pair(72)
+    arr = functional.make_pulse_arrays(p)
+    omega = torch.as_tensor(np.geomspace(0.1, 10, 24))
+    amplitudes = [1.0] * 3 if rows == 'shared' else [1.0, 0.5, 2.0]
+    diagonal = torch.outer(torch.tensor(amplitudes), 1e-3 / omega)
+    cross = torch.diag_embed(diagonal.T).movedim(0, -1)
+    assert not len(numeric._spectrum_profiles(cross, omega, 3).corr)
+    for second in (False, True):
+        want = functional.error_transfer_matrix(arr, diagonal, omega,
+                                                p.basis, second)
+        got = functional.error_transfer_matrix(arr, cross, omega, p.basis,
+                                               second)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-14)
+
+
+@pytest.mark.parametrize('kind', CROSS_KINDS)
+def test_cross_route_builds_no_integrand_and_no_f2(kind, monkeypatch):
+    """Without a gradient, the ETM of a cross-spectrum calls neither the
+    integrand (``numeric._get_integrand``) nor F^(2)
+    (``numeric._second_order_total``), first or second order, batched
+    or not."""
+    _, p = _cross_pair(73)
+    arr = functional.make_pulse_arrays(p)
+    omega = np.geomspace(0.1, 10, 24)
+    spectrum, _ = _cross_spectrum(kind, omega)
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError('the cross route reached the F^(2) route')
+    monkeypatch.setattr(numeric, '_get_integrand', forbidden)
+    monkeypatch.setattr(numeric, '_second_order_total', forbidden)
+    for second in (False, True):
+        functional.error_transfer_matrix(arr, spectrum, omega, p.basis,
+                                         second)
+        functional.batched_error_transfer_matrix(_batched(arr), spectrum,
+                                                 omega, p.basis, second)
+
+
+@pytest.mark.parametrize('kind', ['two_profiles', 'complex'])
+def test_cross_route_gradient_partial_degeneracy(kind):
+    """Autograd through the profile route at the partially degenerate
+    d = 4 pulse (two noise operators, so the first two rows and columns
+    of the spectra above), two profiles, real and complex mixing
+    factors: the second-order directional derivative within 1e-6
+    relative of central differences at h = 1e-6, both entry points, as
+    test_second_order_etm_gradient_partial_degeneracy holds the other
+    spectra."""
+    p, basis = _partially_degenerate_pulse()
+    omega = np.geomspace(0.1, 30, 48)
+    spectrum, _ = _cross_spectrum(kind, omega)
+    spectrum = 30 * spectrum[1:, 1:]
+    assert len(numeric._spectrum_profiles(torch.as_tensor(spectrum),
+                                          torch.as_tensor(omega), 2
+                                          ).weights) == 2
+    rng = np.random.default_rng(74)
+    for batch in (p, _batched(p)):
+        direction = torch.tensor(rng.standard_normal(batch.c_coeffs.shape))
+        weights = torch.tensor(rng.standard_normal(
+            (*batch.c_coeffs.shape[:-2], 16, 16)))
+        got, central = _against_central(
+            _etm_loss(batch, basis, spectrum, omega, True, weights),
+            batch.c_coeffs, direction)
+        assert abs(got - central) <= 1e-6 * abs(central), (got, central)

@@ -387,10 +387,11 @@ def test_diagonal_shifts_copy_no_step_matrices(call, monkeypatch):
     cumsum and reaches no ``_pad_cumulative``: the complete steps read
     B_step in place.  A batch of two d = 3 pulses of 4 segments, 3
     noise operators and 23 frequencies, where nothing else has either
-    size; the shifts alone ('shifts', one row of weights) and the whole
-    ETM ('etm', a spectrum per noise operator).  The cross-spectrum
-    route ('etm_cross'), which takes the padded cumulative sums, shows
-    that the records see them."""
+    size; the shifts alone ('shifts', one row of weights), the whole
+    ETM ('etm', a spectrum per noise operator) and the whole ETM of a
+    cross-spectrum ('etm_cross', two of the three operators correlated),
+    whose route mixes their rows on one side.  The padded cumulative
+    sums, built after each call, show that the records see them."""
     arrays = rand_pulse_arrays(3, 4, n_nops=3,
                                local_rng=np.random.default_rng(37))
     pulse = make_pulse(arrays, cls=fft_cpu)
@@ -402,6 +403,8 @@ def test_diagonal_shifts_copy_no_step_matrices(call, monkeypatch):
     spectrum = torch.outer(_t([1.0, 0.5, 2.0]), 1e-3 / omega)
     if call == 'etm_cross':
         spectrum = torch.diag_embed(spectrum.T).movedim(0, -1) + 0j
+        spectrum[0, 2] = (0.3 + 0.2j) * 1e-3 / omega
+        spectrum[2, 0] = spectrum[0, 2].conj()
     mode, steps, padded = _Outputs(), [], []
     contract, pad = numeric._ctrlmat_step_contract, numeric._pad_cumulative
 
@@ -435,10 +438,12 @@ def test_diagonal_shifts_copy_no_step_matrices(call, monkeypatch):
     sized = [name for name, sizes in after
              if sizes & {step.numel(), row_segment}]
     cumsums = [name for name, _ in after if 'cumsum' in name]
-    if call == 'etm_cross':
-        assert sized and cumsums and padded
-        return
     assert after and not sized and not cumsums and not padded
+    with mode:
+        numeric._pad_cumulative(step, step.cumsum(-4)[..., :-1, :, :, :])
+    seen = mode.ops[start + len(after):]
+    assert padded and [name for name, _ in seen if 'cumsum' in name]
+    assert [name for name, sizes in seen if step.numel() in sizes]
 
 
 @pytest.mark.parametrize('spectrum, n_s', [

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from filter_functions_tpu_torch import functional, numeric, tracing
+from filter_functions_tpu_torch import functional, numeric, tracing, util
 from filter_functions_tpu_torch.basis import Basis
 from torch_testutil import record_lattice_rows
 
@@ -240,40 +240,121 @@ def test_spans_of_the_error_transfer_matrix(pulse, second_order):
 
 
 @pytest.mark.parametrize('order, kind, rows', [
-    (1, 'diagonal', set()), (2, 'diagonal', {1}), (2, 'cross', set())],
+    (1, 'diagonal', set()), (2, 'diagonal', {1}), (2, 'cross', {1})],
     ids=['first', 'second', 'second_cross'])
 def test_shift_counts_of_the_error_transfer_matrix(pulse, monkeypatch,
                                                    order, kind, rows):
-    """The second order of a diagonal spectrum builds the shifts' weighted
-    K2 lattice with one row of weights for the pulses' one noise
-    operator; the first order and a cross-spectrum build none.  Each
-    call reads the device once, for the exponential."""
+    """The second order builds the shifts' weighted K2 lattice with one
+    row of weights for the pulses' one noise operator, of a diagonal
+    spectrum and of the same given as a (1, 1, n_w) cross-spectrum (one
+    profile); the first order builds none.  Each call reads the device
+    once for the exponential, and a cross-spectrum once more, for its
+    profiles and its Hermitian check (``sync.spectrum``)."""
     p, spectrum, omega = pulse
+    reads = {'sync.expm': 1}
     if kind == 'cross':
         spectrum = spectrum[None, None]
+        reads['sync.spectrum'] = 1
     built = record_lattice_rows(monkeypatch)
     with _delta() as got:
         functional.batched_error_transfer_matrix(
             p, spectrum, omega, Basis.ggm(D), second_order=order == 2)
-    assert got == {'sync.expm': 1}
+    assert got == reads
     assert set(built) == rows
 
 
-def test_cross_spectrum_takes_the_total_span(pulse):
-    """A cross-spectrum's second order runs F^(2) in ff.so.total, inside
-    ff.etm between ff.etm.steps and ff.etm.cumulant, and no
-    ff.so.shifts."""
+def _correlated(pulse):
+    """The pulses of the fixture with a second noise operator, and a
+    Hermitian cross-spectrum of the two: S_ab = C_ab 1e-3 / omega with
+    C_01 = 0.4 + 0.3i, one profile."""
     p, _, omega = pulse
-    spectrum = torch.ones(1, 1, 1) * (1e-3 / omega)
-    _, events = _profiled(lambda: functional.batched_error_transfer_matrix(
-        p, spectrum, omega, Basis.ggm(D), second_order=True))
+    rng = np.random.default_rng(23)
+    n_coeffs = torch.tensor(rng.random((BATCH, 1, G)))
+    p = p._replace(n_opers=torch.cat([p.n_opers, torch.tensor(_herm(1, rng))]),
+                   n_coeffs=torch.cat([p.n_coeffs, n_coeffs], 1))
+    c = torch.tensor([[1.0, 0.4 + 0.3j], [0.4 - 0.3j, 0.5]])
+    return p, c[:, :, None] * (1e-3 / omega), omega
+
+
+def test_cross_spectrum_takes_the_total_span(pulse):
+    """A cross-spectrum's second order runs in ff.so.shifts like a
+    diagonal one's, not in F^(2)'s ff.so.total: inside ff.etm,
+    ff.spectrum.profiles comes first, before ff.prep; ff.so.mix opens
+    once in ff.etm.steps (the decay amplitudes) and in ff.so.shifts once
+    for each of the G - 1 updates of the running sum and each chunk of
+    the incomplete steps, and nowhere else.  The matrices are bit for bit
+    those without a profiler, and the call reads the device twice, once
+    for the spectrum and once for the exponential."""
+    p, spectrum, omega = _correlated(pulse)
+
+    def fn():
+        return functional.batched_error_transfer_matrix(
+            p, spectrum, omega, Basis.ggm(D), second_order=True)
+    with _delta() as got:
+        off = fn()
+    assert got == {'sync.spectrum': 1, 'sync.expm': 1}
+    on, events = _profiled(fn)
+    assert torch.equal(on, off)
     etm, = _ranges(events, 'ff.etm')
+    profiles, = _ranges(events, 'ff.spectrum.profiles')
+    prep, = _ranges(events, 'ff.prep')
     steps, = _ranges(events, 'ff.etm.steps')
-    total, = _ranges(events, 'ff.so.total')
-    cumulant, = _ranges(events, 'ff.etm.cumulant')
-    assert _within(total, etm)
-    assert steps[1] <= total[0] and total[1] <= cumulant[0]
-    assert not _ranges(events, 'ff.so.shifts')
+    shifts, = _ranges(events, 'ff.so.shifts')
+    assert _within(profiles, etm) and profiles[1] <= prep[0]
+    mixes = _ranges(events, 'ff.so.mix')
+    in_steps = [m for m in mixes if _within(m, steps)]
+    in_shifts = [m for m in mixes if _within(m, shifts)]
+    eigvals = torch.zeros(BATCH, G, D)
+    chunks = -(-G // numeric._shifts_chunk(eigvals, len(omega), 1,
+                                           mixed=3 * 2 * D ** 4))
+    assert len(in_steps) == 1 and len(in_shifts) == G - 1 + chunks
+    assert len(mixes) == len(in_steps) + len(in_shifts)
+    assert not _ranges(events, 'ff.so.total')
+
+
+def test_a_spectrum_tensor_keeps_its_profiles(pulse):
+    """The profiles of a cross-spectrum given as a tensor are read once
+    and kept by the tensor: a second call reads the device only for the
+    exponential, and gives the first call's matrices bit for bit; a
+    write in place (its version counter) makes the next call read the
+    spectrum again and follow the new values; a numpy spectrum is read
+    on every call."""
+    p, spectrum, omega = _correlated(pulse)
+
+    def fn(s):
+        return functional.batched_error_transfer_matrix(
+            p, s, omega, Basis.ggm(D), second_order=True)
+    reads = []
+    for _ in range(2):
+        with _delta() as got:
+            out = fn(spectrum)
+        reads.append(got)
+    assert reads == [{'sync.spectrum': 1, 'sync.expm': 1}, {'sync.expm': 1}]
+    assert torch.equal(out, fn(spectrum.clone()))
+    spectrum[0, 1] *= 2
+    spectrum[1, 0] *= 2
+    with _delta() as got:
+        changed = fn(spectrum)
+    assert got == {'sync.spectrum': 1, 'sync.expm': 1}
+    assert torch.equal(changed, fn(spectrum.clone()))
+    assert not torch.equal(changed, out)
+    for _ in range(2):
+        with _delta() as got:
+            fn(spectrum.numpy())
+        assert got == {'sync.spectrum': 1, 'sync.expm': 1}
+
+
+def test_parse_spectrum_counts_its_hermitian_check(pulse):
+    """util.parse_spectrum reads the device to check that a 3-d spectrum
+    is Hermitian, once a call, counted as ``sync.spectrum``; a 1-d or
+    2-d spectrum needs no read."""
+    _, spectrum, omega = _correlated(pulse)
+    idx = np.arange(2)
+    with _delta() as got:
+        util.parse_spectrum(spectrum, omega, idx)
+        util.parse_spectrum(spectrum[0, 0], omega, idx)
+        util.parse_spectrum(spectrum[0].real, omega, idx)
+    assert got == {'sync.spectrum': 1}
 
 
 def test_no_range_without_a_profiler(pulse, monkeypatch):
