@@ -35,6 +35,17 @@ phase 5); any failure ends the run with a non-zero exit code:
    ``tracing.counts['ozaki.int8_ops']`` counts them, at 1979 T/s), the
    composite's time and ``torch._int_mm``'s 90 GEMMs of the same slice
    pairs alone (``library_ms``; the port does not call them on CUDA).
+3c. K2 tables: the second-order shifts' weighted K2 lattice on the
+   tables kernel's route (``ops.k2_tables.weighted_lattice``: one launch
+   of ``k2_tables``, one DGEMM, one epilogue) against the plain version
+   on the card (``numeric._factored_weighted_lattice_plain``), within
+   1e-13 of max|ell|, at the ``qft4_etm2`` cell's chunk
+   (``torch_testutil.k2_cell_inputs``: batch 4, d = 16, 1000
+   frequencies, the 9 segments of the route's chunk, one row of
+   weights).  Times the kernel alone beside its memory floor (the bytes
+   it writes at 3.35 TB/s), the whole route and the plain version, and
+   counts its launches in a second-order ETM of 4 flagship rows (one a
+   chunk of the shifts, 2).
 4. main path: ``functional.batched_infidelity`` on the 4-qubit QFT pulse
    at 1000 frequencies, batch 32 in chunks of 2 (bench.py's flagship
    inputs), through the default CUDA route (the factored Ozaki route).
@@ -97,7 +108,12 @@ phase 5); any failure ends the run with a non-zero exit code:
       tables at most ``numeric._SO_FACTORED_TEMPS`` (n_omega, d^2)
       tables and the shifts' weighted lattice at most that plus the 8
       n_s tables of ``numeric._shifts_chunk``: the counts the chunking
-      relies on.  Neither package runs the flagship's second-order ETM
+      relies on; on the card the shifts' weighted lattice takes the
+      tables kernel's route and is held to what that route counts
+      (``numeric._K2_KERNEL_TEMPS`` left planes, the 4 n_s tables of the
+      folded right table, the product and ell).  The reduced terms of
+      (i)-(iii) come from that route too.  Neither package runs the
+      flagship's second-order ETM
       under a cross-spectrum: F^(2) would be (18, 18, 256, 256, 1000)
       complex128, about 340 GB.
    d. Autograd through the flagship's first-order
@@ -319,14 +335,16 @@ from filter_functions_tpu_torch import (analytic, basis, config, convert,
                                         spectroscopy, superoperator, tracing,
                                         util)
 from filter_functions_tpu_torch.models import dd, exchange, qft, rb
-from filter_functions_tpu_torch.ops import _build, dword, ozaki, products
+from filter_functions_tpu_torch.ops import (_build, dword, k2_tables, ozaki,
+                                            products)
 from filter_functions_tpu_torch.parallel import ranks as parallel_ranks
 from filter_functions_tpu_torch.parallel import sharding
-from perfbench.lib.roofline import dword_digits_bound_s
+from perfbench.lib.roofline import HBM_BYTES_PER_S, dword_digits_bound_s
 from perfbench.metrics.int8_products_roofline import INT8_PEAK_OPS_PER_S
 
 sys.path.append(str(Path(__file__).resolve().parent / 'tests'))
-from torch_testutil import products_inputs  # noqa: E402
+from torch_testutil import (QFT4_HELD, k2_cell_inputs,  # noqa: E402
+                            products_inputs)
 
 N_OMEGA = 1000
 BATCH = 32
@@ -618,6 +636,75 @@ def check_products(device, card) -> dict:
     return result
 
 
+#: The K2 tables' route against its plain version, of max|ell|: the order
+#: of the sums (one DGEMM against two products of other shapes).
+K2_TOL = 1e-13
+
+
+def check_k2_tables(device, card) -> dict:
+    """Phase 3c: the K2 tables kernel's route against the plain version
+    at the qft4_etm2 cell's chunk, the kernel alone against its memory
+    floor, and its launches in a second-order ETM of 4 flagship rows;
+    returns the kernel's entry for the JSON line."""
+    omega, eigvals, dt, weights = k2_cell_inputs(1, device)
+    want = numeric._factored_weighted_lattice_plain(omega, eigvals, dt,
+                                                    weights)
+    before = k2_tables.launches
+    got = k2_tables.weighted_lattice(omega, eigvals, dt, weights)
+    torch.cuda.synchronize()
+    if k2_tables.launches - before != 1:
+        raise AssertionError(f'k2_tables: {k2_tables.launches - before} '
+                             f'launches a call')
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    print(f'k2_tables {tuple(eigvals.shape)} segments x d, {len(omega)} '
+          f'frequencies, 1 row: route against the plain version max |diff| '
+          f'{err:.3e} of max|ell| (bound {K2_TOL}), 1 launch')
+    _check('k2_tables route against the plain version', err, K2_TOL)
+    del got, want
+
+    ev = eigvals.reshape(-1, eigvals.shape[-1]).contiguous()
+    seg_dt = dt.reshape(-1).contiguous()
+    written = sum(x.numel() * 8 for x in k2_tables.tables(omega, ev, seg_dt,
+                                                         weights))
+    bound_ms = written / HBM_BYTES_PER_S * 1e3
+    ms = _cuda_ms(lambda: k2_tables.tables(omega, ev, seg_dt, weights), 20)
+    route_ms = _cuda_ms(lambda: k2_tables.weighted_lattice(
+        omega, eigvals, dt, weights), 20)
+    plain_ms = _cuda_ms(lambda: numeric._factored_weighted_lattice_plain(
+        omega, eigvals, dt, weights), 5)
+    print(f'k2_tables: kernel {ms:.4f} ms, whole route (kernel, DGEMM, '
+          f'epilogue) {route_ms:.4f} ms, plain version {plain_ms:.4f} ms a '
+          f'chunk of {ev.shape[0]} segments; memory bound {bound_ms:.4f} '
+          f'ms ({written / 1e9:.3f} GB written), {100 * bound_ms / ms:.1f} '
+          f'% of it [{card}]')
+
+    batched, omega, spectrum = flagship_inputs(device)
+    rows = batched._replace(c_coeffs=batched.c_coeffs[:4],
+                            n_coeffs=batched.n_coeffs[:4], dt=batched.dt[:4])
+    basis = qft.qft_pulse_sequence(4, device=device).basis
+    chunk = numeric._shifts_chunk(torch.zeros(4, 13, 16, device=device),
+                                  N_OMEGA, 1, kernel=True, held=QFT4_HELD)
+    before = k2_tables.launches
+    etm = functional.batched_error_transfer_matrix(rows, spectrum, omega,
+                                                   basis, second_order=True)
+    torch.cuda.synchronize()
+    etm_launches = k2_tables.launches - before
+    print(f'k2_tables: second-order ETM of 4 flagship rows, {etm_launches} '
+          f'launches (chunks of {chunk} of 13 segments)')
+    if etm_launches != -(-13 // chunk) or not torch.isfinite(etm).all():
+        raise AssertionError(f'k2_tables: {etm_launches} launches in the '
+                             f'ETM, not one a chunk, or a value not finite')
+    return {'max_abs_err': err, 'ms': ms, 'route_ms': route_ms,
+            'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': 'bytes',
+            'bound': 'memory', 'pct_of_bound': 100 * bound_ms / ms,
+            'library_ms': None,
+            'library_note': 'no single PyTorch call computes the tables',
+            'launches': etm_launches,
+            'launches_by_path': {
+                'functional.batched_error_transfer_matrix (second order, '
+                '4 flagship rows)': etm_launches}}
+
+
 def _jittered(p, batch):
     """*batch* copies of the pulse *p*: row 0 as it is, the other rows
     with control coefficients scaled by 1 + 0.05 N(0, 1) from
@@ -653,7 +740,7 @@ def main() -> int:
           f'{torch.version.cuda}')
 
     # 2. build
-    for name in ('dword_digits', 'ozaki_products'):
+    for name in ('dword_digits', 'ozaki_products', 'k2_tables'):
         lib, report = _build.build(name)
         print(f'build: {lib.name} (nvcc -Xptxas -v):')
         print(report.strip())
@@ -661,6 +748,7 @@ def main() -> int:
     # 3. kernels against plain versions
     kernel_err, kernel_ms, plain_ms, bound_ms = check_kernel(device, card)
     products_entry = check_products(device, card)
+    k2_entry = check_k2_tables(device, card)
 
     # 4. main path
     batched, omega, spectrum = flagship_inputs(device)
@@ -784,7 +872,10 @@ def main() -> int:
         'name': 'ozaki_products', 'route': 'cuda',
         'source': 'filter_functions_tpu_torch/csrc/ozaki_products.cu',
         'replaces': None, 'launches': sum(by_path.values()),
-        'launches_by_path': by_path, **products_entry}]}))
+        'launches_by_path': by_path, **products_entry}, {
+        'name': 'k2_tables', 'route': 'cuda',
+        'source': 'filter_functions_tpu_torch/csrc/k2_tables.cu',
+        'replaces': None, **k2_entry}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
@@ -1068,8 +1159,11 @@ def segment_memory(name, omega, eigvals, dt, weights):
     axes) of the K2 lattice build, in lattices, against LATTICE_TEMPS; of
     the separable tables, in (n_w, d^2) tables, against
     ``numeric._SO_FACTORED_TEMPS``; and of the shifts' weighted lattice
-    of the n_s rows of *weights*, against that plus the 8 n_s tables
-    that ``numeric._shifts_chunk`` counts beside them."""
+    of the n_s rows of *weights*, on the card the tables kernel's route,
+    against what ``numeric._shifts_chunk`` counts for it: the
+    ``numeric._K2_KERNEL_TEMPS`` left planes, the 4 n_s tables of the
+    folded right table and the product and ell (n_s d^4 complex
+    each)."""
     ev, seg_dt = eigvals[..., :1, :], dt[..., :1]
     d2 = ev.shape[-1] ** 2
     n_s = weights.shape[0]
@@ -1085,7 +1179,8 @@ def segment_memory(name, omega, eigvals, dt, weights):
         'shifts\' weighted lattice': (_peak_above(
             lambda: numeric._factored_weighted_lattice(omega, ev, seg_dt,
                                                        weights), ev.device)
-            / table, 'tables', numeric._SO_FACTORED_TEMPS + 8 * n_s)}
+            / table, 'tables', numeric._K2_KERNEL_TEMPS + 4 * n_s
+            + 2 * n_s * d2 / len(omega))}
     print(f'{name}: peak device memory of one segment x {batch} (n_s = '
           f'{n_s}): ' + '; '.join(
               f'{what} {got:.2f} {unit} (counted {count})'
@@ -1101,6 +1196,7 @@ def second_order_tables(device) -> int:
     memory against the counts of the chunking at the latter two; returns
     the kernel's launches (none)."""
     launches = _launches()
+    tables_before = k2_tables.launches
 
     # (i) 7b's inputs, a diagonal and a cross-spectrum
     d, _, _, batch = SO_SHAPE
@@ -1167,7 +1263,8 @@ def second_order_tables(device) -> int:
     segment_memory('7c(iii)', omega, eigvals, dt, weights)
 
     launches = _launches() - launches
-    print(f'7c: dword_digits launches {launches}')
+    print(f'7c: dword_digits launches {launches}; k2_tables launches '
+          f'{k2_tables.launches - tables_before}')
     if launches:
         raise AssertionError('7c launched the kernel')
     return launches

@@ -28,7 +28,7 @@ import torch
 
 from . import config, tracing, util
 from .basis import Basis
-from .ops import ozaki
+from .ops import k2_tables, ozaki
 
 
 def _perm_tail(x: torch.Tensor, *order: int) -> torch.Tensor:
@@ -245,6 +245,11 @@ _SO_SERIES_J = 12
 #: their powers and products); chip_smoke.py's phase 7c measures them
 #: on a CUDA card.
 _SO_FACTORED_TEMPS = 36
+#: The same for the tables kernel's route (:mod:`.ops.k2_tables`): the 8
+#: terms of the left tables as float64 planes of real and imaginary
+#: parts, all it holds of size (n_w, d^2) beside the weighted right
+#: table (:func:`_shifts_chunk`).
+_K2_KERNEL_TEMPS = 8
 
 
 @functools.lru_cache(maxsize=None)
@@ -1176,20 +1181,21 @@ def _second_order_complete(ctrlmat_step: torch.Tensor,
 
 
 def _factored_chunk(eigvals: torch.Tensor, n_w: int, extra: int,
-                    budget_bytes: Optional[int] = None, fixed: int = 0
-                    ) -> int:
+                    budget_bytes: Optional[int] = None, fixed: int = 0,
+                    temps: int = _SO_FACTORED_TEMPS) -> int:
     """Segments per step of a chunked second-order accumulation that fits
     :func:`.config.memory_budget` (*budget_bytes* overrides it): each
-    segment, with every leading batch index, costs the
-    :data:`_SO_FACTORED_TEMPS` table-size arrays of its build plus
-    *extra* complex128 elements per frequency of the contraction, and
-    each step *fixed* complex128 elements per batch index whatever its
-    number of segments (its output)."""
+    segment, with every leading batch index, costs the *temps*
+    table-size arrays of its build (the :data:`_SO_FACTORED_TEMPS` of
+    the plain tables by default) plus *extra* complex128 elements per
+    frequency of the contraction, and each step *fixed* complex128
+    elements per batch index whatever its number of segments (its
+    output)."""
     batch = math.prod(eigvals.shape[:-2])
     d2 = eigvals.shape[-1] ** 2
     budget = config.memory_budget(eigvals.device, budget_bytes=budget_bytes)
     return _pick_chunk(eigvals.shape[-2],
-                       batch * n_w * (_SO_FACTORED_TEMPS * d2 + extra) * 16,
+                       batch * n_w * (temps * d2 + extra) * 16,
                        budget - batch * fixed * 16)
 
 
@@ -1276,13 +1282,60 @@ def _factored_weighted_lattice(omega, eigvals, dt, weights: torch.Tensor
                                ) -> torch.Tensor:
     r"""ell[..., g, s, ij, mn] = sum_o weights[s, o] I[..., g, o, ij, mn]
     of segments *eigvals* (..., g, d), *dt* (..., g), from the separable
-    tables, without the K2 lattice: the weights fold into the real
-    mn-indexed tables, one matmul reduces over (t, o), and the general
-    form's f_z term reduces over o on its own.  *weights* (n_s, n_w)
-    real.  Returns complex (..., g, n_s, d^2, d^2): weights @ the K2
-    lattice of :func:`_second_order_integral_single`."""
+    tables, without the K2 lattice, in span ``ff.so.tables``.  *weights*
+    (n_s, n_w) real.  Returns complex (..., g, n_s, d^2, d^2): weights @
+    the K2 lattice of :func:`_second_order_integral_single`.
+
+    The route follows the device.  CUDA tensors take the tables kernel
+    (:func:`.ops.k2_tables.weighted_lattice`: one launch that writes the
+    weight-folded operands, one DGEMM, one epilogue) through
+    :class:`_K2Tables`, whose backward differentiates the plain version;
+    CPU tensors take the plain version
+    (:func:`_factored_weighted_lattice_plain`) under autograd."""
+    with tracing.span('ff.so.tables'):
+        if eigvals.is_cuda:
+            return _K2Tables.apply(omega, eigvals, dt, weights)
+        return _factored_weighted_lattice_plain(omega, eigvals, dt, weights)
+
+
+def _factored_weighted_lattice_plain(omega, eigvals, dt,
+                                     weights: torch.Tensor) -> torch.Tensor:
+    """:func:`_factored_weighted_lattice` in PyTorch operations: the
+    tables of :func:`_factored_stacks`, the weights folded into the real
+    mn-indexed tables, one matmul over (t, o) (:func:`_weighted_lattice`)
+    and the general form's f_z term reduced over o on its own."""
     left, right, f_z, r_big = _factored_stacks(omega, eigvals, dt)
     return _weighted_lattice(left, right, [(-f_z, r_big)], weights)
+
+
+class _K2Tables(torch.autograd.Function):
+    """:func:`_factored_weighted_lattice` on the tables kernel's route.
+    Its forward launches :func:`.ops.k2_tables.weighted_lattice` on CUDA
+    tensors and runs :func:`_factored_weighted_lattice_plain` on CPU
+    ones; its backward recomputes the plain version of the chunk under
+    autograd and returns its vector-Jacobian product for each input that
+    requires a gradient (the JAX package has no kernel here, so the
+    derivative is the plain version's).  Saves only the inputs."""
+
+    @staticmethod
+    def forward(ctx, omega, eigvals, dt, weights):
+        ctx.save_for_backward(omega, eigvals, dt, weights)
+        if eigvals.is_cuda:
+            return k2_tables.weighted_lattice(omega, eigvals, dt, weights)
+        return _factored_weighted_lattice_plain(omega, eigvals, dt, weights)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            args = [x.detach().requires_grad_(n)
+                    for x, n in zip(ctx.saved_tensors, need)]
+            wanted = [x for x in args if x.requires_grad]
+            grads = iter(torch.autograd.grad(
+                _factored_weighted_lattice_plain(*args), wanted, g,
+                allow_unused=True))
+        return tuple(next(grads) if n else None for n in need)
 
 
 def _factored_slope_stacks(omega, eigvals, dt):
@@ -1815,16 +1868,33 @@ def _by_row(x: torch.Tensor, ell: torch.Tensor) -> torch.Tensor:
 
 
 def _shifts_chunk(eigvals: torch.Tensor, n_w: int, n_s: int,
-                  budget_bytes: Optional[int] = None, mixed: int = 0) -> int:
+                  budget_bytes: Optional[int] = None, mixed: int = 0,
+                  kernel: bool = False, held: int = 0) -> int:
     """Segments per chunk of :func:`_second_order_diag_shifts` and of its
-    degenerate-eigenspace backward (:func:`_factored_chunk`): beside the
-    tables, the weighted right-hand tables of the n_s rows of the
-    weights and the product's workspace, and *mixed* complex elements a
-    segment of a cross-spectrum's mixing (of any number of frequencies)."""
+    degenerate-eigenspace backward (:func:`_factored_chunk`), with
+    *mixed* complex elements a segment of a cross-spectrum's mixing (of
+    any number of frequencies).
+
+    The plain tables (the CPU's forward, every backward): beside the
+    tables, the weighted right-hand tables of the n_s rows of the weights
+    and the product's workspace.  The tables kernel's route (*kernel*,
+    the CUDA forward, :func:`.ops.k2_tables.weighted_lattice`) holds
+    what the kernel writes and the product makes instead: the left
+    planes (:data:`_K2_KERNEL_TEMPS` tables), the weight-folded right
+    table (8 float64 planes a row, 4 n_s tables), the product and ell
+    (n_s d^4 complex each).  Those no longer outweigh the sandwich, so
+    there its *held* complex elements a segment count too (the chunk's
+    noise-basis products, the left factor and their product)."""
     d = eigvals.shape[-1]
-    return _factored_chunk(eigvals, n_w,
-                           8 * n_s * d * d + math.ceil(mixed / n_w),
-                           budget_bytes)
+    d2 = d * d
+    if not kernel:
+        return _factored_chunk(eigvals, n_w,
+                               8 * n_s * d2 + math.ceil(mixed / n_w),
+                               budget_bytes)
+    return _factored_chunk(
+        eigvals, n_w, 4 * n_s * d2 + math.ceil(
+            (2 * n_s * d2 * d2 + held + mixed) / n_w),
+        budget_bytes, temps=_K2_KERNEL_TEMPS)
 
 
 def _folded_decay_amplitudes(control_matrix: torch.Tensor,
@@ -1944,9 +2014,11 @@ def _second_order_diag_shifts(eigvals, n_opers_transformed,
     mn) from the separable tables of the K2 lattice
     (:func:`_factored_weighted_lattice`), once for each of the n_s rows
     of *weights*, and sandwich the result between the
-    noise-operator/basis products (:func:`_by_row`).  The chunks fit
-    :func:`.config.memory_budget` (*budget_bytes* overrides it) with the
-    tables of n_s rows.
+    noise-operator/basis products (:func:`_by_row`).  On CUDA tensors a
+    chunk's ell is one launch of the tables kernel, one DGEMM and one
+    epilogue (:mod:`.ops.k2_tables`); on the CPU the plain tables.  The
+    chunks fit :func:`.config.memory_budget` (*budget_bytes* overrides
+    it) with what the route holds for n_s rows (:func:`_shifts_chunk`).
 
     A cross-spectrum S_ab = sum_r M^(r)_ab s_r builds one weighted
     lattice per profile s_r instead, the diagonal's from them
@@ -1975,8 +2047,10 @@ def _second_order_diag_shifts(eigvals, n_opers_transformed,
                 * eigvals.shape[-1] ** 2
 
         nob = _noise_basis_products(n_opers_transformed, basis_transformed)
+        # the sandwich's nob_c, left factor and product, (g, a, k, ij) each
+        held = 3 * math.prod(nob.shape[-3:])
         chunk = _shifts_chunk(eigvals, n_w, rows.shape[0], budget_bytes,
-                              mixed)
+                              mixed, kernel=eigvals.is_cuda, held=held)
         for start in range(0, G, chunk):
             sl = slice(start, start + chunk)
             ell = _factored_weighted_lattice(omega, eigvals[..., sl, :],

@@ -36,6 +36,12 @@ Span                        Where
                             lattice is built once per distinct spectrum row
                             (once for all noise operators where they share
                             one row), or of a cross-spectrum once per profile
+``ff.so.tables``            in ``ff.so.shifts``, once a chunk of segments:
+                            its weighted K2 lattice
+                            (:func:`.numeric._factored_weighted_lattice`), on
+                            CUDA the tables kernel of :mod:`.ops.k2_tables`
+                            (one launch), its DGEMM and its epilogue, on the
+                            CPU the plain tables
 ``ff.so.mix``               in ``ff.etm.steps`` (the decay amplitudes,
                             :func:`.numeric._mixed_decay_amplitudes`) and in
                             ``ff.so.shifts`` (each update of the running sum,
@@ -93,9 +99,11 @@ Counter                    Incremented by
 =========================  ==============================================
 
 The port's other counters stay in their modules:
-:data:`.ops.dword.launches` and :data:`.ops.products.launches` (launches
-of the two CUDA kernels) and :data:`.parallel.sharding.collectives`
-(collectives of the sharded entry points).
+:data:`.ops.dword.launches`, :data:`.ops.products.launches` and
+:data:`.ops.k2_tables.launches` (launches of the three CUDA kernels; the
+last once a chunk of the second-order shifts on CUDA) and
+:data:`.parallel.sharding.collectives` (collectives of the sharded entry
+points).
 """
 from __future__ import annotations
 

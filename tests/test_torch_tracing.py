@@ -239,6 +239,25 @@ def test_spans_of_the_error_transfer_matrix(pulse, second_order):
         assert not _ranges(events, 'ff.so.shifts')
 
 
+@pytest.mark.parametrize('budget_bytes', [None, 1], ids=['one', 'each'])
+def test_tables_span_once_a_chunk(pulse, budget_bytes):
+    """ff.so.tables opens once a chunk of the shifts' segments, each
+    inside ff.so.shifts and after the one before: one chunk in the
+    default budget, a chunk a segment in a budget of one byte."""
+    p, spectrum, omega = pulse
+    eigvals, (_, n_t, b_t, ph, integral), _ = functional._prep(
+        p, p.c_coeffs, p.n_coeffs, p.dt, omega)
+    step = numeric._ctrlmat_step_contract(n_t, integral, b_t, ph)
+    weights = numeric._spectral_weights(spectrum, omega, 1)
+    _, events = _profiled(lambda: numeric._second_order_diag_shifts(
+        eigvals, n_t, b_t, step, omega, p.dt, weights, budget_bytes))
+    shifts, = _ranges(events, 'ff.so.shifts')
+    tables = _ranges(events, 'ff.so.tables')
+    assert len(tables) == (1 if budget_bytes is None else G)
+    assert all(_within(t, shifts) for t in tables)
+    assert all(a[1] <= b[0] for a, b in zip(tables, tables[1:]))
+
+
 @pytest.mark.parametrize('order, kind, rows', [
     (1, 'diagonal', set()), (2, 'diagonal', {1}), (2, 'cross', {1})],
     ids=['first', 'second', 'second_cross'])

@@ -13,7 +13,10 @@ each rank checks that it never does.
 :func:`products_inputs` makes random arguments of the Ozaki route's slice
 products (``ops.ozaki._outer_contract``), for the tests and for
 ``chip_smoke.py``'s phase 3b.  :func:`record_lattice_rows` records the
-weighted K2 lattices that the frequency shifts build.
+weighted K2 lattices that the frequency shifts build, and
+:func:`k2_cell_inputs` makes the arguments of one chunk of them at the
+4-qubit QFT cell's shapes, for the K2 tables kernel's tests and
+``chip_smoke.py``'s phase 3c.
 """
 import contextlib
 import functools
@@ -113,6 +116,37 @@ def products_inputs(batch, M, K, N, slice_bits, device, seed,
              pow2(-40, -10, (batch, N), torch.float64)[..., None, :])
             for t in range(3)]
     return (*sides, outs)
+
+
+#: Complex elements a segment that the shifts' sandwich holds at the
+#: 4-qubit QFT pulse (18 noise operators, 256 basis elements, d^2 = 256):
+#: ``numeric._second_order_diag_shifts``' *held*.
+QFT4_HELD = 3 * 18 * 256 * 256
+
+
+def k2_cell_inputs(n_s, device):
+    """One chunk of the shifts' weighted K2 lattice at the 4-qubit QFT
+    cell's shapes, (omega, eigvals, dt, weights): the eigenvalues of the
+    pulse's 13 segments in a batch of 4 (control amplitudes scaled by 1,
+    1.03, 0.97, 1.05), cut to the chunk of segments that the route of
+    *device* takes for n_s rows, 1000 frequencies in geomspace(1e-2,
+    1e2), and n_s rows of 1/omega trapezoid weights scaled from 1 to 2."""
+    from filter_functions_tpu_torch import numeric
+    from filter_functions_tpu_torch.models import qft
+    p = qft.qft_pulse_arrays(4, device=device)
+    scale = torch.tensor([1.0, 1.03, 0.97, 1.05], dtype=torch.float64,
+                         device=device)[:, None, None]
+    ham = torch.einsum('bkg,kij->bgij', (p.c_coeffs[None] * scale).to(
+        p.c_opers.dtype), p.c_opers)
+    eigvals = torch.linalg.eigvalsh(ham)
+    dt = p.dt.expand(4, -1)
+    omega = torch.from_numpy(np.geomspace(1e-2, 1e2, 1000)).to(device)
+    weights = numeric._spectral_weights(1e-4 / omega, omega, 1) * \
+        torch.linspace(1, 2, n_s, dtype=torch.float64,
+                       device=device)[:, None]
+    chunk = numeric._shifts_chunk(eigvals, 1000, n_s,
+                                  kernel=eigvals.is_cuda, held=QFT4_HELD)
+    return omega, eigvals[:, :chunk], dt[:, :chunk], weights
 
 
 def record_lattice_rows(monkeypatch) -> list:
