@@ -250,6 +250,16 @@ _SO_FACTORED_TEMPS = 36
 #: parts, all it holds of size (n_w, d^2) beside the weighted right
 #: table (:func:`_shifts_chunk`).
 _K2_KERNEL_TEMPS = 8
+#: The same for the plain tables rebuilt under autograd by the backward
+#: of :class:`_K2Tables`, beyond their :data:`_SO_FACTORED_TEMPS`: the
+#: intermediates that autograd saves and the vector-Jacobian product's
+#: (with 13 rather than 8 weighted right-hand tables a row of the
+#: weights, :func:`_shifts_chunk`).  At d = 16 and 1000 frequencies the
+#: peak of the rebuild and its product reads 64.8 + 12.6 n_s tables a
+#: segment in a CPU profiler's allocations (n_s rows of the weights), and
+#: 80.8 at n_s = 1 on a CUDA card (the QFT cell's sub-chunks of 3
+#: segments at batch 4: 3.696 GiB over their base).
+_SO_RECOMPUTE_TEMPS = 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -1278,7 +1288,8 @@ def _weighted_lattice(left, right, zterms, weights: torch.Tensor
     return ell
 
 
-def _factored_weighted_lattice(omega, eigvals, dt, weights: torch.Tensor
+def _factored_weighted_lattice(omega, eigvals, dt, weights: torch.Tensor,
+                               budget_bytes: Optional[int] = None
                                ) -> torch.Tensor:
     r"""ell[..., g, s, ij, mn] = sum_o weights[s, o] I[..., g, o, ij, mn]
     of segments *eigvals* (..., g, d), *dt* (..., g), from the separable
@@ -1289,12 +1300,13 @@ def _factored_weighted_lattice(omega, eigvals, dt, weights: torch.Tensor
     The route follows the device.  CUDA tensors take the tables kernel
     (:func:`.ops.k2_tables.weighted_lattice`: one launch that writes the
     weight-folded operands, one DGEMM, one epilogue) through
-    :class:`_K2Tables`, whose backward differentiates the plain version;
-    CPU tensors take the plain version
+    :class:`_K2Tables`, whose backward differentiates the plain version
+    in chunks of segments that fit :func:`.config.memory_budget`
+    (*budget_bytes* overrides it); CPU tensors take the plain version
     (:func:`_factored_weighted_lattice_plain`) under autograd."""
     with tracing.span('ff.so.tables'):
         if eigvals.is_cuda:
-            return _K2Tables.apply(omega, eigvals, dt, weights)
+            return _K2Tables.apply(omega, eigvals, dt, weights, budget_bytes)
         return _factored_weighted_lattice_plain(omega, eigvals, dt, weights)
 
 
@@ -1312,14 +1324,25 @@ class _K2Tables(torch.autograd.Function):
     """:func:`_factored_weighted_lattice` on the tables kernel's route.
     Its forward launches :func:`.ops.k2_tables.weighted_lattice` on CUDA
     tensors and runs :func:`_factored_weighted_lattice_plain` on CPU
-    ones; its backward recomputes the plain version of the chunk under
-    autograd and returns its vector-Jacobian product for each input that
-    requires a gradient (the JAX package has no kernel here, so the
-    derivative is the plain version's).  Saves only the inputs."""
+    ones; its backward recomputes the plain version under autograd and
+    returns its vector-Jacobian product for each input that requires a
+    gradient (the JAX package has no kernel here, so the derivative is
+    the plain version's).  Saves only the inputs.
+
+    forward(omega, eigvals (..., G, d), dt (..., G), weights,
+    budget_bytes).  The backward rebuilds the tables in sub-chunks of
+    the G segments that fit :func:`.config.memory_budget` (*budget_bytes*
+    overrides it) with what autograd holds of the rebuild
+    (:func:`_shifts_chunk`, *recompute*), each in span
+    ``ff.so.tables.backward``; the segments' gradients are joined and
+    those of the shared frequencies and weights summed.  It counts the
+    segments it rebuilt, with every leading index, in
+    ``tracing.counts['so.tables.recomputed']``."""
 
     @staticmethod
-    def forward(ctx, omega, eigvals, dt, weights):
+    def forward(ctx, omega, eigvals, dt, weights, budget_bytes=None):
         ctx.save_for_backward(omega, eigvals, dt, weights)
+        ctx.budget_bytes = budget_bytes
         if eigvals.is_cuda:
             return k2_tables.weighted_lattice(omega, eigvals, dt, weights)
         return _factored_weighted_lattice_plain(omega, eigvals, dt, weights)
@@ -1327,15 +1350,42 @@ class _K2Tables(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        need = ctx.needs_input_grad
-        with torch.enable_grad():
-            args = [x.detach().requires_grad_(n)
-                    for x, n in zip(ctx.saved_tensors, need)]
-            wanted = [x for x in args if x.requires_grad]
-            grads = iter(torch.autograd.grad(
-                _factored_weighted_lattice_plain(*args), wanted, g,
-                allow_unused=True))
-        return tuple(next(grads) if n else None for n in need)
+        omega, eigvals, dt, weights = ctx.saved_tensors
+        need = ctx.needs_input_grad[:4]
+        G = eigvals.shape[-2]
+        chunk = _shifts_chunk(eigvals, omega.shape[-1], weights.shape[0],
+                              ctx.budget_bytes, recompute=True)
+        parts = [[] for _ in need]
+        for start in range(0, G, chunk):
+            sl = slice(start, start + chunk)
+            with tracing.span('ff.so.tables.backward'), torch.enable_grad():
+                args = [x.detach().requires_grad_(n) for x, n in zip(
+                    (omega, eigvals[..., sl, :], dt[..., sl], weights), need)]
+                grads = iter(torch.autograd.grad(
+                    _factored_weighted_lattice_plain(*args),
+                    [x for x in args if x.requires_grad],
+                    g[..., sl, :, :, :], allow_unused=True))
+                for part, n in zip(parts, need):
+                    if n:
+                        part.append(next(grads))
+            tracing.counts['so.tables.recomputed'] += \
+                eigvals[..., sl, 0].numel()
+        # omega, eigvals' segments, dt's segments, weights
+        axes = (None, -2, -1, None)
+        return tuple(_joined(part, axis) if n else None
+                     for part, n, axis in zip(parts, need, axes)) + (None,)
+
+
+def _joined(parts: Sequence[Optional[torch.Tensor]], axis: Optional[int]
+            ) -> Optional[torch.Tensor]:
+    """The gradients of the sub-chunks of :meth:`_K2Tables.backward`:
+    concatenated along *axis*, or summed where *axis* is None (an input
+    every sub-chunk shares); None where the input was unused."""
+    if parts[0] is None:
+        return None
+    if axis is None:
+        return functools.reduce(torch.add, parts)
+    return torch.cat(parts, axis)
 
 
 def _factored_slope_stacks(omega, eigvals, dt):
@@ -1869,15 +1919,21 @@ def _by_row(x: torch.Tensor, ell: torch.Tensor) -> torch.Tensor:
 
 def _shifts_chunk(eigvals: torch.Tensor, n_w: int, n_s: int,
                   budget_bytes: Optional[int] = None, mixed: int = 0,
-                  kernel: bool = False, held: int = 0) -> int:
-    """Segments per chunk of :func:`_second_order_diag_shifts` and of its
-    degenerate-eigenspace backward (:func:`_factored_chunk`), with
-    *mixed* complex elements a segment of a cross-spectrum's mixing (of
-    any number of frequencies).
+                  kernel: bool = False, held: int = 0,
+                  recompute: bool = False) -> int:
+    """Segments per chunk of :func:`_second_order_diag_shifts`, of its
+    degenerate-eigenspace backward and of the sub-chunks of
+    :meth:`_K2Tables.backward` (:func:`_factored_chunk`), with *mixed*
+    complex elements a segment of a cross-spectrum's mixing (of any
+    number of frequencies).
 
     The plain tables (the CPU's forward, every backward): beside the
     tables, the weighted right-hand tables of the n_s rows of the weights
-    and the product's workspace.  The tables kernel's route (*kernel*,
+    and the product's workspace.  Rebuilt under autograd (*recompute*,
+    the backward of :class:`_K2Tables`) they hold as well what autograd
+    saves and the vector-Jacobian product's arrays
+    (:data:`_SO_RECOMPUTE_TEMPS`, and 13 rather than 8 tables a row of
+    the weights).  The tables kernel's route (*kernel*,
     the CUDA forward, :func:`.ops.k2_tables.weighted_lattice`) holds
     what the kernel writes and the product makes instead: the left
     planes (:data:`_K2_KERNEL_TEMPS` tables), the weight-folded right
@@ -1888,9 +1944,11 @@ def _shifts_chunk(eigvals: torch.Tensor, n_w: int, n_s: int,
     d = eigvals.shape[-1]
     d2 = d * d
     if not kernel:
-        return _factored_chunk(eigvals, n_w,
-                               8 * n_s * d2 + math.ceil(mixed / n_w),
-                               budget_bytes)
+        return _factored_chunk(
+            eigvals, n_w, (13 if recompute else 8) * n_s * d2
+            + math.ceil(mixed / n_w), budget_bytes,
+            temps=_SO_FACTORED_TEMPS
+            + (_SO_RECOMPUTE_TEMPS if recompute else 0))
     return _factored_chunk(
         eigvals, n_w, 4 * n_s * d2 + math.ceil(
             (2 * n_s * d2 * d2 + held + mixed) / n_w),
@@ -2054,7 +2112,7 @@ def _second_order_diag_shifts(eigvals, n_opers_transformed,
         for start in range(0, G, chunk):
             sl = slice(start, start + chunk)
             ell = _factored_weighted_lattice(omega, eigvals[..., sl, :],
-                                             dt[..., sl], rows)
+                                             dt[..., sl], rows, budget_bytes)
             # (g, a, k, ij), copied once for both products
             nob_c = nob[..., sl, :, :, :].contiguous()
             shifts = shifts + _sandwich(nob_c, ell, profiles)
@@ -2115,37 +2173,41 @@ class _DegenerateIncompleteSteps(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        w, v, n_t, b_t, omega, dt, weights, factors = ctx.saved_tensors
-        G, d = w.shape[-2:]
-        n_w, n_s = omega.shape[-1], weights.shape[0]
-        mixed = 0 if factors is None else \
-            2 * n_s * n_t.shape[-4] * b_t.shape[-3] * d * d
-        chunk = _shifts_chunk(w, n_w, n_s, ctx.budget_bytes, mixed)
-        cg = g.conj()[..., None, :, :, :]                 # (1, a, k, l)
-        grads = []
-        for start in range(0, G, chunk):
-            sl = slice(start, start + chunk)
-            w_c, v_c, n_c, b_c = (w[..., sl, :], v[..., sl, :, :],
-                                  n_t[..., sl, :, :], b_t[..., sl, :, :, :])
-            nob = _noise_basis_products(n_c, b_c)         # (g, a, k, ij)
-            dell1, dell2 = (_weighted_lattice(*slot, weights) for slot in
-                            _factored_slope_stacks(omega, w_c, dt[..., sl]))
-            if factors is None:
-                w_mat = (_by_row(cg @ nob, dell1.mT)
-                         + cg.mT @ _by_row(nob, dell2))
-            else:
-                # row b holds sum_a M^(r)_ab nob[a] I_r nob[b]^T: the
-                # left factors' coefficients mixed back by M^(r), the
-                # right factor's against the mixed left factors
-                z = (cg @ nob)[..., None, :, :, :] \
-                    @ dell1.mT[..., :, None, :, :]
-                y = torch.einsum('rab,...gakx->...grbkx', factors, nob)
-                w_mat = torch.einsum('rab,...grbkx->...gakx', factors, z) \
-                    + (cg.mT[..., None, :, :, :]
-                       @ (y @ dell2[..., :, None, :, :])).sum(-4)
-            grads.append(_degenerate_grad(_incomplete_coeff(w_mat, n_c, b_c),
-                                          w_c, v_c))
-        return (torch.cat(grads, -3),) + (None,) * 9
+        with tracing.span('ff.so.degenerate.backward'):
+            w, v, n_t, b_t, omega, dt, weights, factors = ctx.saved_tensors
+            G, d = w.shape[-2:]
+            n_w, n_s = omega.shape[-1], weights.shape[0]
+            mixed = 0 if factors is None else \
+                2 * n_s * n_t.shape[-4] * b_t.shape[-3] * d * d
+            chunk = _shifts_chunk(w, n_w, n_s, ctx.budget_bytes, mixed)
+            cg = g.conj()[..., None, :, :, :]             # (1, a, k, l)
+            grads = []
+            for start in range(0, G, chunk):
+                sl = slice(start, start + chunk)
+                w_c, v_c, n_c, b_c = (w[..., sl, :], v[..., sl, :, :],
+                                      n_t[..., sl, :, :],
+                                      b_t[..., sl, :, :, :])
+                nob = _noise_basis_products(n_c, b_c)     # (g, a, k, ij)
+                dell1, dell2 = (
+                    _weighted_lattice(*slot, weights) for slot in
+                    _factored_slope_stacks(omega, w_c, dt[..., sl]))
+                if factors is None:
+                    w_mat = (_by_row(cg @ nob, dell1.mT)
+                             + cg.mT @ _by_row(nob, dell2))
+                else:
+                    # row b holds sum_a M^(r)_ab nob[a] I_r nob[b]^T: the
+                    # left factors' coefficients mixed back by M^(r), the
+                    # right factor's against the mixed left factors
+                    z = (cg @ nob)[..., None, :, :, :] \
+                        @ dell1.mT[..., :, None, :, :]
+                    y = torch.einsum('rab,...gakx->...grbkx', factors, nob)
+                    w_mat = torch.einsum('rab,...grbkx->...gakx', factors,
+                                         z) \
+                        + (cg.mT[..., None, :, :, :]
+                           @ (y @ dell2[..., :, None, :, :])).sum(-4)
+                grads.append(_degenerate_grad(
+                    _incomplete_coeff(w_mat, n_c, b_c), w_c, v_c))
+            return (torch.cat(grads, -3),) + (None,) * 9
 
 
 def _incomplete_coeff(w_mat, n_t, b_t) -> torch.Tensor:

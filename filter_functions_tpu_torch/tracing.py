@@ -42,6 +42,16 @@ Span                        Where
                             CUDA the tables kernel of :mod:`.ops.k2_tables`
                             (one launch), its DGEMM and its epilogue, on the
                             CPU the plain tables
+``ff.so.tables.backward``   :meth:`.numeric._K2Tables.backward`, once a
+                            sub-chunk of a chunk's segments (sized to the
+                            memory budget, :func:`.numeric._shifts_chunk`):
+                            the plain tables rebuilt under autograd and
+                            their vector-Jacobian product; on autograd's
+                            thread
+``ff.so.degenerate.backward``  :meth:`.numeric._DegenerateIncompleteSteps.
+                            backward`: the shifts' part of the derivative
+                            inside degenerate eigenspaces, from the slopes
+                            of the separable tables; on autograd's thread
 ``ff.so.mix``               in ``ff.etm.steps`` (the decay amplitudes,
                             :func:`.numeric._mixed_decay_amplitudes`) and in
                             ``ff.so.shifts`` (each update of the running sum,
@@ -64,9 +74,12 @@ Span                        Where
                             :mod:`.ops.products`, on the CPU the composite)
 ==========================  ==================================================
 
-The backward has no span of its own: autograd opens
+The backward has spans of its own only in the two ``*.backward``
+rows above.  Besides, autograd opens
 ``autograd::engine::evaluate_function: <Node>`` around every node
 (``_OzakiOuterBackward``, ``_EighBackward``, ...) on the same clock.
+On CUDA tensors the backward runs on a thread of autograd's own, which
+the profiler records as it does the caller's.
 
 :data:`counts` counts the host's reads of the device and the escalation
 decisions, each at the site that makes it, after the value is on the
@@ -96,6 +109,9 @@ Counter                    Incremented by
                            int8 operations of its slice products,
                            3 B sum_pairs 2 M K N (unpadded, on every
                            device)
+``so.tables.recomputed``  :meth:`.numeric._K2Tables.backward`, by the
+                           segments whose plain tables it rebuilt, each
+                           leading (batch) index counted
 =========================  ==============================================
 
 The port's other counters stay in their modules:

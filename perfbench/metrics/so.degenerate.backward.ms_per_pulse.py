@@ -1,0 +1,13 @@
+"""``so.degenerate.backward.ms_per_pulse``: device time of the operations
+launched inside the program's ``ff.so.degenerate.backward`` spans (the
+frequency shifts' part of the derivative inside degenerate eigenspaces,
+from the slopes of the separable tables, on autograd's thread), per
+pulse of the traced window; left out where the program has no such
+span."""
+from perfbench.metrics import _program
+
+
+def read(run):
+    return _program.per_pulse_ms(
+        run, _program.launched_under_s(run.trace,
+                                       'ff.so.degenerate.backward'))

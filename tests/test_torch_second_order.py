@@ -458,14 +458,18 @@ def test_distinct_rows_from_shape_and_strides(spectrum, n_s):
     assert numeric._distinct_rows(s) == n_s
 
 
-@pytest.mark.parametrize('n_s, chunk', [(1, 5), (18, 1)])
-def test_shifts_chunk_at_the_qft_batch(n_s, chunk):
+@pytest.mark.parametrize('n_s, recompute, chunk', [
+    (1, False, 5), (18, False, 1), (1, True, 3), (18, True, 1)])
+def test_shifts_chunk_at_the_qft_batch(n_s, recompute, chunk):
     """The shifts' chunks at the second-order ETM of the 4-qubit QFT
     pulse (batch 4, 13 segments, d = 16, 1000 frequencies) in a 4 GiB
-    budget: 5 segments a chunk with one row of weights, 1 with 18."""
+    budget: 5 segments a chunk with one row of weights, 1 with 18; the
+    tables rebuilt under autograd (the backward of ``_K2Tables``), 78
+    tables a segment-row with one row of weights (4 x 78 x 4.1 MB a
+    segment): 3 segments a sub-chunk, 1 with 18 rows."""
     eigvals = torch.zeros(4, 13, 16)
-    assert numeric._shifts_chunk(eigvals, 1000, n_s,
-                                 budget_bytes=4 * 2**30) == chunk
+    assert numeric._shifts_chunk(eigvals, 1000, n_s, budget_bytes=4 * 2**30,
+                                 recompute=recompute) == chunk
 
 
 def test_object_order_two_matches_jax():

@@ -258,6 +258,65 @@ def test_tables_span_once_a_chunk(pulse, budget_bytes):
     assert all(a[1] <= b[0] for a, b in zip(tables, tables[1:]))
 
 
+@pytest.mark.parametrize('degenerate', [False, True],
+                         ids=['distinct', 'degenerate'])
+def test_spans_of_the_second_order_backward(pulse, degenerate):
+    """Autograd of the second-order ETM opens ff.so.degenerate.backward
+    once, after the forward's ff.etm, where a segment is degenerate, and
+    none where none is; on the CPU the forward takes the plain tables
+    under autograd, so no ff.so.tables.backward opens and nothing is
+    recomputed.  The gradient is bit for bit that without a
+    profiler."""
+    p, spectrum, omega = pulse
+    cc = p.c_coeffs.clone()
+    if degenerate:
+        cc[..., :5] = 0           # H = 0: one eigenspace of dimension d
+
+    def fn():
+        c = cc.clone().requires_grad_(True)
+        etm = functional.batched_error_transfer_matrix(
+            p._replace(c_coeffs=c), spectrum, omega, Basis.ggm(D),
+            second_order=True)
+        return torch.autograd.grad(etm.sum(), c)[0]
+    off = fn()
+    with _delta() as got:
+        on, events = _profiled(fn)
+    assert torch.equal(on, off)
+    etm, = _ranges(events, 'ff.etm')
+    spans = _ranges(events, 'ff.so.degenerate.backward')
+    assert len(spans) == degenerate
+    assert all(etm[1] <= s[0] for s in spans)
+    assert not _ranges(events, 'ff.so.tables.backward')
+    assert 'so.tables.recomputed' not in got
+
+
+@pytest.mark.parametrize('budget_bytes, sub_chunks', [(None, 1), (1, 3)],
+                         ids=['one', 'each'])
+def test_tables_backward_spans_and_count(budget_bytes, sub_chunks):
+    """The tables' autograd Function rebuilds them in its backward in
+    span ff.so.tables.backward, once a sub-chunk, one after the other:
+    all 3 segments at once in the default budget, one a sub-chunk in a
+    budget of one byte; each way it counts the 2 x 3 segment-rows once
+    (``so.tables.recomputed``)."""
+    rng = np.random.default_rng(29)
+    omega = torch.tensor(np.geomspace(0.3, 6, 7))
+    eigvals = torch.tensor(np.sort(rng.standard_normal((2, 3, D)), -1),
+                           requires_grad=True)
+    dt = torch.tensor(rng.random((2, 3)) + 0.5)
+    weights = torch.tensor(rng.random((1, 7)))
+
+    def fn():
+        out = numeric._K2Tables.apply(omega, eigvals, dt, weights,
+                                      budget_bytes)
+        return torch.autograd.grad(out.abs().sum(), eigvals)[0]
+    with _delta() as got:
+        _, events = _profiled(fn)
+    assert got == {'so.tables.recomputed': 6}
+    spans = _ranges(events, 'ff.so.tables.backward')
+    assert len(spans) == sub_chunks
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+
+
 @pytest.mark.parametrize('order, kind, rows', [
     (1, 'diagonal', set()), (2, 'diagonal', {1}), (2, 'cross', {1})],
     ids=['first', 'second', 'second_cross'])

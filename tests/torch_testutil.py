@@ -157,9 +157,9 @@ def record_lattice_rows(monkeypatch) -> list:
     built = []
     build = numeric._factored_weighted_lattice
 
-    def recorded(omega, eigvals, dt, weights):
+    def recorded(omega, eigvals, dt, weights, *budget):
         built.append(weights.shape[0])
-        return build(omega, eigvals, dt, weights)
+        return build(omega, eigvals, dt, weights, *budget)
     monkeypatch.setattr(numeric, '_factored_weighted_lattice', recorded)
     return built
 
