@@ -1756,6 +1756,19 @@ class _Profiles(NamedTuple):
             out = term * w if out is None else torch.addcmul(out, term, w)
         return out
 
+    def mix_adjoint(self, y: torch.Tensor) -> torch.Tensor:
+        """The adjoint of :meth:`mix`: sum_r conj(mix_weights[r])
+        (mixing[r]^H @ y) over the correlated operators' axis of *y*
+        (..., n_c, k, n_w), the vector-Jacobian product of :meth:`mix`
+        with cotangent *y* in PyTorch's convention."""
+        flat = y.flatten(-2)
+        out = None
+        for m, w in zip(self.mixing, self.mix_weights):
+            term = (m.mH @ flat).unflatten(-1, y.shape[-2:])
+            out = term * w.conj() if out is None \
+                else torch.addcmul(out, term, w.conj())
+        return out
+
 
 def _row_profiles(rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """(profiles (r, n_w), coefficients (m, r)) of distinct nonzero real
@@ -2000,32 +2013,142 @@ def _complete_step_shifts(ctrlmat_step: torch.Tensor, weights: torch.Tensor,
     cross-spectrum (*weights* its diagonal) the part off the diagonal,
     sum_{b != a} S_ab B_{g', b}, joins the rows of the correlated
     operators a of each update (:meth:`_Profiles.mix`); the sum over the
-    noise operators is that of F^(2)'s (a, b) pairs.  Out-of-place up to
-    that fresh update, so autograd runs through it.
+    noise operators is that of F^(2)'s (a, b) pairs.  Autograd runs
+    through :class:`_CompleteStepShifts`, whose backward writes the
+    gradient of *ctrlmat_step* once.
 
     ctrlmat_step (..., G, n_nops, n_b, n_w); *weights* (n_s, n_w) real
     or complex, n_s = 1 or n_nops.  Returns (..., n_nops, n_b, n_b)
     complex.
     """
-    lead = ctrlmat_step.shape[:-4]
-    n_nops, n_basis = ctrlmat_step.shape[-3:-1]
     mixed = profiles is not None and bool(profiles.mixed)
-    # complex, so that the update runs without a cast: exact, w + 0j
-    w = weights.to(ctrlmat_step.dtype)[:, None, :]
+    if not mixed:
+        return _CompleteStepShifts.apply(ctrlmat_step, weights, None, None)
+    return _CompleteStepShifts.apply(ctrlmat_step, weights,
+                                     profiles.mix_weights, profiles)
+
+
+def _running_weighted_sum(ctrlmat_step: torch.Tensor, w: torch.Tensor,
+                          profiles: Optional[_Profiles]):
+    """Yields (g, Cw_g) for g = 1 .. G - 1 of the running buffer Cw_g =
+    sum_{g' < g} w B_{g'} (..., n_nops, n_b, n_w) of
+    :func:`_complete_step_shifts`, updated in place by one ``addcmul``
+    a segment, and with *profiles* the correlated rows' mixing in span
+    ``ff.so.mix``.  *w* (n_s, 1, n_w) in B_step's dtype."""
     cw = torch.zeros_like(ctrlmat_step[..., 0, :, :, :])
-    rows = list(np.ndindex(*lead))
-    acc = [ctrlmat_step.new_zeros(n_nops, n_basis, n_basis) for _ in rows]
     for g in range(1, ctrlmat_step.shape[-4]):
         prev = ctrlmat_step[..., g - 1, :, :, :]
-        cw = torch.addcmul(cw, prev, w)
-        if mixed:
+        cw.addcmul_(prev, w)
+        if profiles is not None:
             with tracing.span('ff.so.mix'):
                 cw.index_add_(-3, profiles.corr, profiles.mix(
                     prev.index_select(-3, profiles.corr)))
-        for i, row in enumerate(rows):
-            acc[i] = torch.baddbmm(acc[i], ctrlmat_step[row + (g,)].conj(),
-                                   cw[row].mT)
-    return torch.stack(acc).reshape(*lead, n_nops, n_basis, n_basis)
+        yield g, cw
+
+
+class _CompleteStepShifts(torch.autograd.Function):
+    r""":func:`_complete_step_shifts` with a backward of its own, which
+    writes the gradient of B_step once, into one tensor, and saves no
+    running buffer: the forward saves only its inputs.
+
+    forward(ctrlmat_step (..., G, n_nops, n_b, n_w), weights (n_s, n_w),
+    mix_weights, profiles): *profiles* None for a diagonal spectrum, else
+    the :class:`_Profiles` of a cross-spectrum and *mix_weights* its
+    ``mix_weights`` (an input, so that it keeps its derivative).
+
+    With G the cotangent of the shifts (PyTorch's convention), W =
+    diag(w), Cw_h the forward's running buffer and Suf_h = sum_{g > h}
+    B_g, each segment's gradient is
+
+        dB_h = conj(G) Cw_h + (G^T Suf_h) conj(W)
+               [+ on the correlated rows the adjoint of the mixing,
+                :meth:`_Profiles.mix_adjoint`, of G^T Suf_h],
+
+    one batched product a leading index and segment for each term,
+    written into dB_h's slice of the one gradient (``torch.bmm`` with
+    ``out=`` from the suffix's end, then ``baddbmm_`` from the prefix's
+    start); the gradients of *weights* and *mix_weights* reduce G^T
+    Suf_h against B_h and the mixed B_h, where asked for.  Runs in span
+    ``ff.so.steps.backward`` and counts the segments it differentiated,
+    with every leading index, in
+    ``tracing.counts['so.steps.differentiated']``."""
+
+    @staticmethod
+    def forward(ctx, ctrlmat_step, weights, mix_weights, profiles):
+        ctx.save_for_backward(ctrlmat_step, weights, mix_weights)
+        ctx.profiles = profiles
+        lead = ctrlmat_step.shape[:-4]
+        n_nops, n_basis = ctrlmat_step.shape[-3:-1]
+        # complex, so that the update runs without a cast: exact, w + 0j
+        w = weights.to(ctrlmat_step.dtype)[:, None, :]
+        acc = ctrlmat_step.new_zeros(*lead, n_nops, n_basis, n_basis)
+        rows = list(np.ndindex(*lead))
+        for g, cw in _running_weighted_sum(ctrlmat_step, w, profiles):
+            for row in rows:
+                acc[row].baddbmm_(ctrlmat_step[row + (g,)].conj(),
+                                  cw[row].mT)
+        return acc
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        with tracing.span('ff.so.steps.backward'):
+            ctrlmat_step, weights, mix_weights = ctx.saved_tensors
+            profiles = ctx.profiles
+            need_b, need_w, need_m = ctx.needs_input_grad[:3]
+            G = ctrlmat_step.shape[-4]
+            rows = list(np.ndindex(*ctrlmat_step.shape[:-4]))
+            w = weights.to(ctrlmat_step.dtype)[:, None, :]
+            d_b = torch.empty_like(ctrlmat_step) if need_b else None
+            # the suffix's products, G^T Suf_h, where no gradient of
+            # B_step holds them
+            spare = None if need_b else \
+                torch.empty_like(ctrlmat_step[..., 0, :, :, :])
+            d_w = torch.zeros_like(w[:, 0, :]) if need_w else None
+            d_m = torch.zeros_like(mix_weights) if need_m else None
+            if need_b:
+                d_b[..., G - 1, :, :, :].zero_()
+            suf = ctrlmat_step[..., G - 1, :, :, :].clone()
+            for h in range(G - 2, -1, -1):
+                b_h = ctrlmat_step[..., h, :, :, :]
+                t = spare if d_b is None else d_b[..., h, :, :, :]
+                for row in rows:
+                    torch.bmm(grad[row].mT, suf[row], out=t[row])
+                if need_w:
+                    # summed over the leading indices and the basis, and
+                    # over the operators that share a row of the weights
+                    prod = (t * b_h.conj()).reshape(-1, *t.shape[-3:]).sum(
+                        (0, 2))
+                    d_w += prod.sum(0, keepdim=True) if len(d_w) == 1 \
+                        else prod
+                if profiles is not None:
+                    with tracing.span('ff.so.mix'):
+                        t_c = t.index_select(-3, profiles.corr)
+                        if need_m:
+                            b_c = b_h.index_select(-3, profiles.corr)
+                            for r, m in enumerate(profiles.mixing):
+                                mb = (m @ b_c.flatten(-2)).unflatten(
+                                    -1, b_c.shape[-2:])
+                                d_m[r] += (t_c * mb.conj()).flatten(
+                                    end_dim=-2).sum(0)
+                        if need_b:
+                            mixed = profiles.mix_adjoint(t_c)
+                if need_b:
+                    t.mul_(w.conj())
+                    if profiles is not None:
+                        t.index_add_(-3, profiles.corr, mixed)
+                if h:
+                    suf.add_(b_h)
+            del suf
+            if need_b:
+                for g, cw in _running_weighted_sum(ctrlmat_step, w,
+                                                   profiles):
+                    for row in rows:
+                        d_b[row + (g,)].baddbmm_(grad[row].conj(), cw[row])
+            tracing.counts['so.steps.differentiated'] += G * len(rows)
+        if d_w is not None and not weights.is_complex():
+            d_w = d_w.real
+        return d_b, d_w, d_m, None
 
 
 def _mixed_rows(nob: torch.Tensor, ell: torch.Tensor, x: torch.Tensor,

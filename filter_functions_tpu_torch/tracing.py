@@ -52,12 +52,20 @@ Span                        Where
                             backward`: the shifts' part of the derivative
                             inside degenerate eigenspaces, from the slopes
                             of the separable tables; on autograd's thread
+``ff.so.steps.backward``    :meth:`.numeric._CompleteStepShifts.backward`:
+                            the gradient of the per-step control matrices
+                            through the complete steps' running sum,
+                            written once, segment by segment, from a
+                            running suffix and the rebuilt running sum;
+                            on autograd's thread
 ``ff.so.mix``               in ``ff.etm.steps`` (the decay amplitudes,
-                            :func:`.numeric._mixed_decay_amplitudes`) and in
+                            :func:`.numeric._mixed_decay_amplitudes`), in
                             ``ff.so.shifts`` (each update of the running sum,
-                            each chunk's incomplete steps): the correlated
-                            noise operators mixed by a cross-spectrum's
-                            factors off its diagonal
+                            each chunk's incomplete steps) and in
+                            ``ff.so.steps.backward`` (each segment of the
+                            suffix and of the rebuilt running sum): the
+                            correlated noise operators mixed by a
+                            cross-spectrum's factors off its diagonal
 ``ff.so.total``             :func:`.numeric._second_order_total`: F^(2) of
                             the object path's second-order filter function,
                             the same two parts
@@ -74,7 +82,7 @@ Span                        Where
                             :mod:`.ops.products`, on the CPU the composite)
 ==========================  ==================================================
 
-The backward has spans of its own only in the two ``*.backward``
+The backward has spans of its own only in the three ``*.backward``
 rows above.  Besides, autograd opens
 ``autograd::engine::evaluate_function: <Node>`` around every node
 (``_OzakiOuterBackward``, ``_EighBackward``, ...) on the same clock.
@@ -112,6 +120,9 @@ Counter                    Incremented by
 ``so.tables.recomputed``  :meth:`.numeric._K2Tables.backward`, by the
                            segments whose plain tables it rebuilt, each
                            leading (batch) index counted
+``so.steps.differentiated``  :meth:`.numeric._CompleteStepShifts.
+                           backward`, by the segments whose gradient it
+                           wrote, each leading (batch) index counted
 =========================  ==============================================
 
 The port's other counters stay in their modules:

@@ -446,6 +446,165 @@ def test_diagonal_shifts_copy_no_step_matrices(call, monkeypatch):
     assert [name for name, sizes in seen if step.numel() in sizes]
 
 
+def _cross_profiles(c02, omega):
+    """The profiles of a cross-spectrum of three noise operators at
+    *omega*: diagonal (1, 0.5, 2) 1e-3 / omega, and S_02 = conj(S_20) =
+    *c02* 1e-3 / omega, so that operators 0 and 2 mix with real or
+    complex factors."""
+    s = torch.diag_embed(torch.outer(_t([1.0, 0.5, 2.0]), 1e-3 / omega).T
+                         ).movedim(0, -1) + 0j
+    s[0, 2] = c02 * 1e-3 / omega
+    s[2, 0] = s[0, 2].conj()
+    return numeric._spectrum_profiles(s, omega, 3)
+
+
+def _cumulative_complete_steps(step, weights, profiles=None):
+    """The complete steps on the padded cumulative control matrices,
+    sum_g conj(B_g) (W C_g + mixed C_g)^T, in PyTorch operations under
+    autograd, with no Function."""
+    cumul = numeric._pad_cumulative(step, step.cumsum(-4)[..., :-1, :, :, :])
+    cw = cumul * weights.to(step.dtype)[:, None, :]
+    if profiles is not None:
+        cw = cw.index_add(-3, profiles.corr, profiles.mix(
+            cumul.index_select(-3, profiles.corr)))
+    return (step.conj() @ cw.mT).sum(-4)
+
+
+def _gradients(fn, inputs, cotangent):
+    """The vector-Jacobian products of fn(*inputs) with *cotangent* in
+    each of *inputs*, and its value."""
+    inputs = [x.detach().clone().requires_grad_(True) for x in inputs]
+    out = fn(*inputs)
+    return out.detach(), torch.autograd.grad(out, inputs, cotangent)
+
+
+@pytest.mark.parametrize('batched', [False, True], ids=['single', 'batched'])
+@pytest.mark.parametrize('spectrum', [
+    'one_row', 'per_operator', 'real_mixing', 'complex_mixing'])
+def test_complete_steps_gradient_equals_the_cumulative_formula(spectrum,
+                                                               batched):
+    """The gradients of the complete steps' running sum
+    (``numeric._CompleteStepShifts``) equal autograd of the formula on
+    the padded cumulative control matrices within 1e-12 of their largest
+    entry, for one pulse and a batch of two: in B_step and the weights
+    of a diagonal spectrum, one row of weights or one a noise operator;
+    with a cross-spectrum's profiles, whose mixing factors are real or
+    complex, in B_step, the diagonal's weights and the mixing's weights.
+    The weights' gradient alone, with B_step a constant, is the same."""
+    step = _shift_inputs(seed=35)[3]
+    if batched:
+        step = _two(step)
+    omega = _t(np.geomspace(0.1, 20, 30))
+    profiles = None
+    if spectrum.endswith('mixing'):
+        profiles = _cross_profiles(
+            0.4 if spectrum == 'real_mixing' else 0.4 + 0.3j, omega)
+        assert profiles.mixed and profiles.corr.tolist() == [0, 2]
+        assert (profiles.mixing.imag != 0).any() == (spectrum != 'real_mixing')
+        inputs = (step, profiles.diagonal, profiles.mix_weights)
+    else:
+        s = torch.outer(_t([1.0, 0.5, 2.0]), 2e-3 / omega ** 0.8)
+        n_s = 1 if spectrum == 'one_row' else 3
+        inputs = (step, numeric._spectral_weights(s, omega, 3)[:n_s])
+
+    def running(b, w, mw=None):
+        p = profiles and profiles._replace(mix_weights=mw)
+        return numeric._complete_step_shifts(b, w, p)
+
+    def cumulative(b, w, mw=None):
+        p = profiles and profiles._replace(mix_weights=mw)
+        return _cumulative_complete_steps(b, w, p)
+    cotangent = torch.randn((*step.shape[:-4], 3, 9, 9), dtype=step.dtype,
+                            generator=torch.Generator().manual_seed(5))
+    got_value, got = _gradients(running, inputs, cotangent)
+    want_value, want = _gradients(cumulative, inputs, cotangent)
+    _close(got_value, want_value, 1e-13)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close(g, w, 1e-12)
+    _, (weights_only,) = _gradients(
+        lambda w: running(step, w, *inputs[2:]), inputs[1:2], cotangent)
+    _close(weights_only, want[1], 1e-12)
+
+
+@pytest.mark.parametrize('mixed', [False, True], ids=['diagonal', 'mixed'])
+def test_complete_steps_gradcheck(mixed):
+    """torch.autograd.gradcheck of the complete steps at a tiny complex
+    size (3 segments, 3 noise operators, 2 basis elements, 4
+    frequencies, B_step in its layout), in B_step and the weights, and
+    with a cross-spectrum in the mixing's weights too."""
+    gen = torch.Generator().manual_seed(8)
+    step = torch.randn(3, 4, 3, 2, dtype=torch.complex128,
+                       generator=gen).movedim(-3, -1)
+    omega = _t(np.geomspace(0.1, 20, 4))
+    if mixed:
+        profiles = _cross_profiles(0.4 + 0.3j, omega)
+        inputs = (step, profiles.diagonal, profiles.mix_weights)
+
+        def fn(b, w, mw):
+            return numeric._complete_step_shifts(
+                b, w, profiles._replace(mix_weights=mw))
+    else:
+        inputs = (step, torch.rand(1, 4, dtype=torch.float64,
+                                   generator=gen))
+        fn = numeric._complete_step_shifts
+    inputs = [x.detach().clone().requires_grad_(True) for x in inputs]
+    assert torch.autograd.gradcheck(fn, inputs)
+
+
+@pytest.mark.parametrize('mixed', [False, True], ids=['diagonal', 'mixed'])
+def test_complete_steps_forward_is_that_without_a_gradient(mixed):
+    """The complete steps' values with a gradient asked for are
+    ``torch.equal`` to those without."""
+    step = _two(_shift_inputs(seed=35)[3])
+    omega = _t(np.geomspace(0.1, 20, 30))
+    profiles = _cross_profiles(0.4 + 0.3j, omega) if mixed else None
+    weights = profiles.diagonal if mixed else \
+        numeric._spectral_weights(1e-3 / omega, omega, 1)
+    plain = numeric._complete_step_shifts(step, weights, profiles)
+    traced = numeric._complete_step_shifts(
+        step.clone().requires_grad_(True), weights, profiles)
+    assert not plain.requires_grad and traced.requires_grad
+    assert torch.equal(traced.detach(), plain)
+
+
+def test_complete_steps_backward_writes_one_step_gradient():
+    """The backward of the complete steps makes exactly one tensor of
+    B_step's element count, by no ``zeros`` or ``fill_``: the gradient,
+    written once, segment by segment, not one zero-filled tensor per
+    slice of B_step; the forward saves only its inputs, no running
+    buffer of a segment's size.  A batch of two d = 3 pulses of 4
+    segments, 3 noise operators and 30 frequencies; the cumulative
+    formula's backward, recorded the same way, shows that the records
+    see tensors of that count."""
+    step = _two(_shift_inputs(seed=35)[3]).detach().requires_grad_(True)
+    omega = _t(np.geomspace(0.1, 20, 30))
+    weights = numeric._spectral_weights(1e-3 / omega, omega, 1)
+    segments = {step[:, 0].numel(), step[0, 0].numel()}
+    saved = []
+
+    def pack(x):
+        saved.append(x.numel())
+        return x
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+        out = numeric._complete_step_shifts(step, weights)
+    assert saved and set(saved) <= {step.numel(), weights.numel()}
+    assert not set(saved) & segments
+    mode = _Outputs()
+    with mode:
+        grad, = torch.autograd.grad(out, step, torch.ones_like(out))
+    assert grad.shape == step.shape
+    sized = [name for name, sizes in mode.ops if step.numel() in sizes]
+    assert len(sized) == 1 and 'empty' in sized[0]
+    assert not [name for name in sized
+                if 'zero' in name or 'fill' in name]
+    out = _cumulative_complete_steps(step, weights)
+    with mode:
+        torch.autograd.grad(out, step, torch.ones_like(out))
+    assert len([name for name, sizes in mode.ops[len(sized):]
+                if step.numel() in sizes]) > 1
+
+
 @pytest.mark.parametrize('spectrum, n_s', [
     (torch.ones(30), 1), (torch.ones(1, 30), 1), (torch.ones(3, 30), 3),
     (torch.ones(30).expand(3, 30), 1), (np.ones((3, 30)), 3)],

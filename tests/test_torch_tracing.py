@@ -317,6 +317,34 @@ def test_tables_backward_spans_and_count(budget_bytes, sub_chunks):
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
 
 
+@pytest.mark.parametrize('grad', [False, True], ids=['forward', 'backward'])
+def test_steps_backward_span_and_count(pulse, grad):
+    """Autograd of the second-order ETM opens ff.so.steps.backward once,
+    after the forward's ff.etm, and counts the G x BATCH segment-rows
+    whose gradient the complete steps' backward wrote
+    (``so.steps.differentiated``); the forward alone opens no such span
+    and leaves the counter as it was."""
+    p, spectrum, omega = pulse
+
+    def fn():
+        c = p.c_coeffs.clone().requires_grad_(grad)
+        etm = functional.batched_error_transfer_matrix(
+            p._replace(c_coeffs=c), spectrum, omega, Basis.ggm(D),
+            second_order=True)
+        if grad:
+            torch.autograd.grad(etm.sum(), c)
+    with _delta() as got:
+        _, events = _profiled(fn)
+    spans = _ranges(events, 'ff.so.steps.backward')
+    if not grad:
+        assert not spans and 'so.steps.differentiated' not in got
+        return
+    etm, = _ranges(events, 'ff.etm')
+    span, = spans
+    assert etm[1] <= span[0]
+    assert got['so.steps.differentiated'] == G * BATCH
+
+
 @pytest.mark.parametrize('order, kind, rows', [
     (1, 'diagonal', set()), (2, 'diagonal', {1}), (2, 'cross', {1})],
     ids=['first', 'second', 'second_cross'])
