@@ -76,10 +76,16 @@ def _prep(p: PulseArrays, c_coeffs: torch.Tensor, n_coeffs: torch.Tensor,
     step terms, the degenerate-eigenspace term of the control matrix,
     :func:`.numeric._degenerate_control_matrix`, or None)."""
     with tracing.span('ff.prep'):
+        region = tracing.backward_span('ff.prep.backward', c_coeffs,
+                                       n_coeffs, dt)
+        c_coeffs, n_coeffs, dt = region.inputs
         ham, eigvals, eigvecs, terms = _diagonalized(p, c_coeffs, n_coeffs,
                                                      dt, omega)
-        return eigvals, terms, numeric._degenerate_control_matrix(
+        degenerate = numeric._degenerate_control_matrix(
             ham, eigvals, eigvecs, terms, omega, dt)
+        eigvals, *terms, degenerate = region.outputs(eigvals, *terms,
+                                                     degenerate)
+        return eigvals, tuple(terms), degenerate
 
 
 def _contract(terms: Tuple[torch.Tensor, ...],
@@ -288,6 +294,8 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
     change.
     """
     with tracing.span('ff.etm'):
+        region = tracing.backward_span('ff.etm.backward', *p)
+        p = p._make(region.inputs)
         n_nops = p.n_opers.shape[0]
         s = util._broadcast_spectrum(spectrum, omega, np.arange(n_nops),
                                      device=omega.device)
@@ -301,10 +309,17 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
             rows = profiles.diagonal
             weights = rows.expand(n_nops, -1)
         with tracing.span('ff.prep'):
-            ham, eigvals, eigvecs, terms = _diagonalized(
-                p, p.c_coeffs, p.n_coeffs, p.dt, omega)
-        _, n_t, b_t, ph, integral = terms
+            prep = tracing.backward_span('ff.prep.backward', p.c_coeffs,
+                                         p.n_coeffs, p.dt)
+            ham, eigvals, eigvecs, terms = _diagonalized(p, *prep.inputs,
+                                                         omega)
+            ham, eigvals, eigvecs, *terms = prep.outputs(ham, eigvals,
+                                                         eigvecs, *terms)
         with tracing.span('ff.etm.steps'):
+            steps = tracing.backward_span('ff.etm.steps.backward', ham,
+                                          eigvals, eigvecs, *terms)
+            ham, eigvals, eigvecs, *terms = steps.inputs
+            _, n_t, b_t, ph, integral = terms
             step = numeric._ctrlmat_step_contract(n_t, integral, b_t, ph)
             degenerate = numeric._degenerate_control_matrix(
                 ham, eigvals, eigvecs, terms, omega, p.dt,
@@ -318,6 +333,7 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
             if profiles is not None:
                 gamma = numeric._mixed_decay_amplitudes(ctrl, gamma,
                                                         profiles)
+            step, gamma = steps.outputs(step, gamma)
         delta = None
         if second_order:
             incomplete = numeric._degenerate_incomplete_steps(
@@ -330,8 +346,11 @@ def _etm_core(p: PulseArrays, spectrum, omega: torch.Tensor, basis: Basis,
                 shifts = shifts + incomplete
             delta = shifts.real
         with tracing.span('ff.etm.cumulant'):
-            k_fn = numeric._cumulant_contract(gamma, delta, basis)
-            return numeric._expm(k_fn.sum(-3))
+            cumulant = tracing.backward_span('ff.etm.cumulant.backward',
+                                             gamma, delta)
+            k_fn = numeric._cumulant_contract(*cumulant.inputs, basis)
+            return region.outputs(cumulant.outputs(
+                numeric._expm(k_fn.sum(-3))))
 
 
 def error_transfer_matrix(p: PulseArrays, spectrum, omega, basis: Basis,

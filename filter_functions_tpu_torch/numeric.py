@@ -1335,9 +1335,7 @@ class _K2Tables(torch.autograd.Function):
     overrides it) with what autograd holds of the rebuild
     (:func:`_shifts_chunk`, *recompute*), each in span
     ``ff.so.tables.backward``; the segments' gradients are joined and
-    those of the shared frequencies and weights summed.  It counts the
-    segments it rebuilt, with every leading index, in
-    ``tracing.counts['so.tables.recomputed']``."""
+    those of the shared frequencies and weights summed."""
 
     @staticmethod
     def forward(ctx, omega, eigvals, dt, weights, budget_bytes=None):
@@ -1368,8 +1366,6 @@ class _K2Tables(torch.autograd.Function):
                 for part, n in zip(parts, need):
                     if n:
                         part.append(next(grads))
-            tracing.counts['so.tables.recomputed'] += \
-                eigvals[..., sl, 0].numel()
         # omega, eigvals' segments, dt's segments, weights
         axes = (None, -2, -1, None)
         return tuple(_joined(part, axis) if n else None
@@ -2068,10 +2064,9 @@ class _CompleteStepShifts(torch.autograd.Function):
     written into dB_h's slice of the one gradient (``torch.bmm`` with
     ``out=`` from the suffix's end, then ``baddbmm_`` from the prefix's
     start); the gradients of *weights* and *mix_weights* reduce G^T
-    Suf_h against B_h and the mixed B_h, where asked for.  Runs in span
-    ``ff.so.steps.backward`` and counts the segments it differentiated,
-    with every leading index, in
-    ``tracing.counts['so.steps.differentiated']``."""
+    Suf_h against B_h and the mixed B_h, where asked for.  The forward
+    runs in span ``ff.so.steps``, the backward in
+    ``ff.so.steps.backward``."""
 
     @staticmethod
     def forward(ctx, ctrlmat_step, weights, mix_weights, profiles):
@@ -2083,10 +2078,11 @@ class _CompleteStepShifts(torch.autograd.Function):
         w = weights.to(ctrlmat_step.dtype)[:, None, :]
         acc = ctrlmat_step.new_zeros(*lead, n_nops, n_basis, n_basis)
         rows = list(np.ndindex(*lead))
-        for g, cw in _running_weighted_sum(ctrlmat_step, w, profiles):
-            for row in rows:
-                acc[row].baddbmm_(ctrlmat_step[row + (g,)].conj(),
-                                  cw[row].mT)
+        with tracing.span('ff.so.steps'):
+            for g, cw in _running_weighted_sum(ctrlmat_step, w, profiles):
+                for row in rows:
+                    acc[row].baddbmm_(ctrlmat_step[row + (g,)].conj(),
+                                      cw[row].mT)
         return acc
 
     @staticmethod
@@ -2145,7 +2141,6 @@ class _CompleteStepShifts(torch.autograd.Function):
                                                    profiles):
                     for row in rows:
                         d_b[row + (g,)].baddbmm_(grad[row].conj(), cw[row])
-            tracing.counts['so.steps.differentiated'] += G * len(rows)
         if d_w is not None and not weights.is_complex():
             d_w = d_w.real
         return d_b, d_w, d_m, None
@@ -2210,6 +2205,12 @@ def _second_order_diag_shifts(eigvals, n_opers_transformed,
     factor (:func:`_mixed_rows`).  Neither a lattice per pair nor a
     product per pair is made.
 
+    Spans: the complete steps ``ff.so.steps``, each chunk's lattice
+    ``ff.so.tables``, and ``ff.so.sandwich`` around the noise-basis
+    products and around each chunk's sandwich with its add into the
+    shifts, whose backward runs in ``ff.so.sandwich.backward``
+    (:func:`.tracing.backward_span`).
+
     eigvals (..., G, d), n_opers_transformed (..., n_nops, G, d, d),
     basis_transformed (..., G, n_b, d, d), ctrlmat_step (..., G, n_nops,
     n_b, n_w), dt (..., G); *weights* (n_s, n_w), S(w) w_trapz / 2 pi,
@@ -2227,7 +2228,11 @@ def _second_order_diag_shifts(eigvals, n_opers_transformed,
             mixed = 3 * len(profiles.mixed) * len(profiles.corr) * n_basis \
                 * eigvals.shape[-1] ** 2
 
-        nob = _noise_basis_products(n_opers_transformed, basis_transformed)
+        with tracing.span('ff.so.sandwich'):
+            region = tracing.backward_span('ff.so.sandwich.backward',
+                                           n_opers_transformed,
+                                           basis_transformed)
+            nob = region.outputs(_noise_basis_products(*region.inputs))
         # the sandwich's nob_c, left factor and product, (g, a, k, ij) each
         held = 3 * math.prod(nob.shape[-3:])
         chunk = _shifts_chunk(eigvals, n_w, rows.shape[0], budget_bytes,
@@ -2236,9 +2241,14 @@ def _second_order_diag_shifts(eigvals, n_opers_transformed,
             sl = slice(start, start + chunk)
             ell = _factored_weighted_lattice(omega, eigvals[..., sl, :],
                                              dt[..., sl], rows, budget_bytes)
-            # (g, a, k, ij), copied once for both products
-            nob_c = nob[..., sl, :, :, :].contiguous()
-            shifts = shifts + _sandwich(nob_c, ell, profiles)
+            with tracing.span('ff.so.sandwich'):
+                region = tracing.backward_span('ff.so.sandwich.backward',
+                                               nob, ell)
+                nob_k, ell = region.inputs
+                # (g, a, k, ij), copied once for both products
+                nob_c = nob_k[..., sl, :, :, :].contiguous()
+                shifts = region.outputs(shifts + _sandwich(nob_c, ell,
+                                                           profiles))
         return shifts
 
 

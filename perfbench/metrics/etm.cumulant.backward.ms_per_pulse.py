@@ -1,0 +1,12 @@
+"""``etm.cumulant.backward.ms_per_pulse``: device time of the operations
+launched inside the program's ``ff.etm.cumulant.backward`` ranges (the
+backward of the exponential's Taylor and squaring products and of the
+cumulant's contraction through the basis, on autograd's thread), per
+pulse of the traced window; left out where the program has no such
+span."""
+from perfbench.metrics import _program
+
+
+def read(run):
+    return _program.per_pulse_ms(
+        run, _program.launched_under_s(run.trace, 'ff.etm.cumulant.backward'))

@@ -5,6 +5,7 @@ escalation decision at its site, and the int8 operations of the Ozaki
 slice products."""
 import contextlib
 import re
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -73,6 +74,26 @@ def _delta():
 def test_span_is_inert_without_a_profiler():
     assert not torch.autograd._profiler_enabled()
     assert isinstance(tracing.span('ff.test'), contextlib.nullcontext)
+
+
+@pytest.mark.parametrize('profiled', [False, True],
+                         ids=['no_profiler', 'no_grad'])
+def test_backward_span_is_inert_without_a_profiler_or_grad(profiled):
+    """Without a profiler, or under one with grad disabled, a backward
+    span hands back its inputs and outputs themselves."""
+    x = torch.ones(3, requires_grad=True)
+
+    def fn():
+        with torch.no_grad() if profiled else contextlib.nullcontext():
+            region = tracing.backward_span('ff.test.backward', x, None)
+            assert region.inputs[0] is x and region.inputs[1] is None
+            y = region.inputs[0] * 2
+            assert region.outputs(y) is y
+            assert region.outputs(y, x) == (y, x)
+    if profiled:
+        _profiled(fn)
+    else:
+        fn()
 
 
 def test_span_is_a_range_under_a_profiler():
@@ -243,7 +264,10 @@ def test_spans_of_the_error_transfer_matrix(pulse, second_order):
 def test_tables_span_once_a_chunk(pulse, budget_bytes):
     """ff.so.tables opens once a chunk of the shifts' segments, each
     inside ff.so.shifts and after the one before: one chunk in the
-    default budget, a chunk a segment in a budget of one byte."""
+    default budget, a chunk a segment in a budget of one byte.  Beside
+    them in ff.so.shifts, first ff.so.steps once (the complete steps),
+    then ff.so.sandwich once for the noise-basis products and once
+    after each chunk's tables; none overlaps another."""
     p, spectrum, omega = pulse
     eigvals, (_, n_t, b_t, ph, integral), _ = functional._prep(
         p, p.c_coeffs, p.n_coeffs, p.dt, omega)
@@ -256,6 +280,39 @@ def test_tables_span_once_a_chunk(pulse, budget_bytes):
     assert len(tables) == (1 if budget_bytes is None else G)
     assert all(_within(t, shifts) for t in tables)
     assert all(a[1] <= b[0] for a, b in zip(tables, tables[1:]))
+    steps = _ranges(events, 'ff.so.steps')
+    sandwich = _ranges(events, 'ff.so.sandwich')
+    assert len(steps) == 1 and len(sandwich) == len(tables) + 1
+    parts = sorted(steps + sandwich + tables)
+    assert all(_within(s, shifts) for s in parts)
+    assert all(a[1] <= b[0] for a, b in zip(parts, parts[1:]))
+    assert parts[0] == steps[0] and parts[1] == sandwich[0]
+    assert parts[2::2] == tables and parts[3::2] == sandwich[1:]
+
+
+#: The program's ranges of the second-order ETM's backward: the whole,
+#: and the stages that tracing.backward_span marks
+ETM_BACKWARD = 'ff.etm.backward'
+BACKWARD_STAGES = ('ff.etm.cumulant.backward', 'ff.so.sandwich.backward',
+                   'ff.etm.steps.backward', 'ff.prep.backward')
+MARKERS = ('_OpenBackward', '_CloseBackward')
+
+
+def _node_types(t) -> Counter:
+    """The autograd nodes of *t*'s graph, counted by type."""
+    seen, stack = set(), [t.grad_fn]
+    while stack:
+        node = stack.pop()
+        if node is not None and node not in seen:
+            seen.add(node)
+            stack.extend(n for n, _ in node.next_functions)
+    return Counter(type(n).__name__ for n in seen)
+
+
+def _nested_or_apart(ranges) -> bool:
+    return all(a[1] <= b[0] or b[1] <= a[0] or _within(a, b)
+               or _within(b, a)
+               for i, a in enumerate(ranges) for b in ranges[i + 1:])
 
 
 @pytest.mark.parametrize('degenerate', [False, True],
@@ -264,9 +321,13 @@ def test_spans_of_the_second_order_backward(pulse, degenerate):
     """Autograd of the second-order ETM opens ff.so.degenerate.backward
     once, after the forward's ff.etm, where a segment is degenerate, and
     none where none is; on the CPU the forward takes the plain tables
-    under autograd, so no ff.so.tables.backward opens and nothing is
-    recomputed.  The gradient is bit for bit that without a
-    profiler."""
+    under autograd, so no ff.so.tables.backward opens.  The backward
+    spans open ff.etm.backward once, after the forward's ff.etm, and in
+    it each stage's range at least once; no two of these ranges and the
+    Functions' own overlap but by nesting.  Without a profiler the
+    graph holds no marker and otherwise the nodes it holds under one;
+    the gradient is bit for bit the same, and no counter but the reads
+    of the device moves."""
     p, spectrum, omega = pulse
     cc = p.c_coeffs.clone()
     if degenerate:
@@ -277,17 +338,31 @@ def test_spans_of_the_second_order_backward(pulse, degenerate):
         etm = functional.batched_error_transfer_matrix(
             p._replace(c_coeffs=c), spectrum, omega, Basis.ggm(D),
             second_order=True)
-        return torch.autograd.grad(etm.sum(), c)[0]
-    off = fn()
+        return etm, torch.autograd.grad(etm.sum(), c)[0]
+    etm_off, off = fn()
     with _delta() as got:
-        on, events = _profiled(fn)
+        (etm_on, on), events = _profiled(fn)
     assert torch.equal(on, off)
+    types_off, types_on = _node_types(etm_off), _node_types(etm_on)
+    assert not any(types_off[m] for m in MARKERS)
+    assert all(types_on[m] for m in MARKERS)
+    assert types_on - Counter({m: types_on[m] for m in MARKERS}) \
+        == types_off
+    assert got == {'sync.expm': 1, 'sync.degenerate': 2}
     etm, = _ranges(events, 'ff.etm')
     spans = _ranges(events, 'ff.so.degenerate.backward')
     assert len(spans) == degenerate
     assert all(etm[1] <= s[0] for s in spans)
     assert not _ranges(events, 'ff.so.tables.backward')
-    assert 'so.tables.recomputed' not in got
+    whole, = _ranges(events, ETM_BACKWARD)
+    assert etm[1] <= whole[0]
+    ranges = spans + _ranges(events, 'ff.so.steps.backward')
+    for name in BACKWARD_STAGES:
+        found = _ranges(events, name)
+        assert found, name
+        ranges += found
+    assert all(_within(r, whole) for r in ranges)
+    assert _nested_or_apart(ranges)
 
 
 @pytest.mark.parametrize('budget_bytes, sub_chunks', [(None, 1), (1, 3)],
@@ -296,8 +371,8 @@ def test_tables_backward_spans_and_count(budget_bytes, sub_chunks):
     """The tables' autograd Function rebuilds them in its backward in
     span ff.so.tables.backward, once a sub-chunk, one after the other:
     all 3 segments at once in the default budget, one a sub-chunk in a
-    budget of one byte; each way it counts the 2 x 3 segment-rows once
-    (``so.tables.recomputed``)."""
+    budget of one byte; each way the gradient is bit for bit that
+    without a profiler, and no counter moves."""
     rng = np.random.default_rng(29)
     omega = torch.tensor(np.geomspace(0.3, 6, 7))
     eigvals = torch.tensor(np.sort(rng.standard_normal((2, 3, D)), -1),
@@ -309,9 +384,11 @@ def test_tables_backward_spans_and_count(budget_bytes, sub_chunks):
         out = numeric._K2Tables.apply(omega, eigvals, dt, weights,
                                       budget_bytes)
         return torch.autograd.grad(out.abs().sum(), eigvals)[0]
+    off = fn()
     with _delta() as got:
-        _, events = _profiled(fn)
-    assert got == {'so.tables.recomputed': 6}
+        on, events = _profiled(fn)
+    assert got == {}
+    assert torch.equal(on, off)
     spans = _ranges(events, 'ff.so.tables.backward')
     assert len(spans) == sub_chunks
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
@@ -320,10 +397,10 @@ def test_tables_backward_spans_and_count(budget_bytes, sub_chunks):
 @pytest.mark.parametrize('grad', [False, True], ids=['forward', 'backward'])
 def test_steps_backward_span_and_count(pulse, grad):
     """Autograd of the second-order ETM opens ff.so.steps.backward once,
-    after the forward's ff.etm, and counts the G x BATCH segment-rows
-    whose gradient the complete steps' backward wrote
-    (``so.steps.differentiated``); the forward alone opens no such span
-    and leaves the counter as it was."""
+    after the forward's ff.etm, inside ff.etm.backward, with the
+    gradient bit for bit that without a profiler; the forward alone
+    opens no such range.  No counter moves but the reads of the
+    device."""
     p, spectrum, omega = pulse
 
     def fn():
@@ -332,17 +409,20 @@ def test_steps_backward_span_and_count(pulse, grad):
             p._replace(c_coeffs=c), spectrum, omega, Basis.ggm(D),
             second_order=True)
         if grad:
-            torch.autograd.grad(etm.sum(), c)
+            return torch.autograd.grad(etm.sum(), c)[0]
     with _delta() as got:
-        _, events = _profiled(fn)
+        on, events = _profiled(fn)
     spans = _ranges(events, 'ff.so.steps.backward')
     if not grad:
-        assert not spans and 'so.steps.differentiated' not in got
+        assert not spans and not _ranges(events, ETM_BACKWARD)
+        assert got == {'sync.expm': 1}
         return
+    assert got == {'sync.expm': 1, 'sync.degenerate': 2}
     etm, = _ranges(events, 'ff.etm')
+    whole, = _ranges(events, ETM_BACKWARD)
     span, = spans
-    assert etm[1] <= span[0]
-    assert got['so.steps.differentiated'] == G * BATCH
+    assert etm[1] <= span[0] and _within(span, whole)
+    assert torch.equal(on, fn())
 
 
 @pytest.mark.parametrize('order, kind, rows', [
@@ -478,14 +558,16 @@ def test_no_range_without_a_profiler(pulse, monkeypatch):
 
 
 def test_tables_list_the_spans_and_counters():
-    """tracing's docstring tables name exactly the spans the package opens
-    and the counters it increments."""
+    """tracing's docstring tables name exactly the spans the package opens,
+    through :func:`tracing.span` and :func:`tracing.backward_span`, and the
+    counters it increments."""
     doc = tracing.__doc__
     spans_doc = doc[doc.index('Span '):doc.index('The backward')]
     counters_doc = doc[doc.index('Counter '):doc.index('The port\'s other')]
     source = ''.join(path.read_text() for path in
                      Path(tracing.__file__).parent.rglob('*.py'))
-    assert set(re.findall(r"tracing\.span\('([\w.]+)'\)", source)) == \
-        set(re.findall(r'^``([\w.]+)``', spans_doc, re.M))
+    opened = set(re.findall(r"tracing\.span\('([\w.]+)'\)", source)) | \
+        set(re.findall(r"tracing\.backward_span\(\s*'([\w.]+)'", source))
+    assert opened == set(re.findall(r'^``([\w.]+)``', spans_doc, re.M))
     assert set(re.findall(r"(?:tracing\.)?counts\['([\w.]+)'\]", source)) \
         == set(re.findall(r'^``([\w.]+)``', counters_doc, re.M))
